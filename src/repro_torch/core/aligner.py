@@ -1,0 +1,157 @@
+"""Associative cosine aligner: full scan, delta update and score readout
+(port of ``repro.core.aligner``).
+
+Accumulators are integer dot products over the enabled dimensions; cosine is
+applied only at readout. Every function takes optional leading batch axes
+(the multi-stream step's ``[S]``) on its per-query arguments.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import fused_window as fw
+from . import hdc
+from .item_memory import ItemMemory, bank_plane_sel, pmajor_bank_blocks
+from .types import TorrConfig
+
+
+def full_dot(q_packed: torch.Tensor, im: ItemMemory,
+             wmask: torch.Tensor) -> torch.Tensor:
+    """Integer dot <q, h_j> over enabled words for all M classes.
+
+    q_packed: int32 [..., W]; im.packed: int32 [M, W]; wmask: bool [..., W].
+    dot = d_eff - 2 * hamming, with hamming counted on enabled words only.
+    Returns int32 [..., M]."""
+    x = q_packed[..., None, :] ^ im.packed                      # [..., M, W]
+    pc = hdc.popcount32(x)
+    pc = torch.where(wmask[..., None, :], pc, 0)
+    d_eff = 32 * torch.sum(wmask, dim=-1, dtype=torch.int32)
+    return d_eff[..., None] - 2 * torch.sum(pc, dim=-1, dtype=torch.int32)
+
+
+def delta_indices(q_new_packed: torch.Tensor, q_old_packed: torch.Tensor,
+                  wmask: torch.Tensor, budget: int, D: int):
+    """PSU (Sec. 4.4): flipped dims between queries, within the delta budget.
+
+    Returns (idx [..., budget] int32, weight [..., budget] int32 in
+    {-2,0,+2}, count [...] int32 = true |Delta| over enabled words). Padding
+    entries have weight 0 and idx 0; if count > budget the caller escalates
+    to full. The k-th flipped dim is the smallest d whose cumulative flip
+    count reaches k+1 (the same search as ``repro``)."""
+    xor = torch.where(wmask, q_new_packed ^ q_old_packed, 0)
+    count = torch.sum(hdc.popcount32(xor), dim=-1, dtype=torch.int32)
+    shifts = torch.arange(32, dtype=torch.int32, device=xor.device)
+    flip = ((xor[..., None] >> shifts) & 1).reshape(*xor.shape[:-1], D)
+    cum = torch.cumsum(flip.to(torch.int64), dim=-1)
+    k = torch.arange(budget, dtype=torch.int64, device=xor.device)
+    in_budget = k < count[..., None]
+    target = (k + 1).expand(*cum.shape[:-1], budget).contiguous()
+    pos = torch.searchsorted(cum, target, side="left")
+    idx = torch.where(in_budget, pos, 0)
+    # q_new bit at a flipped dim: +1 bit -> new value +1 -> correction +2
+    word = torch.gather(q_new_packed, -1, idx // 32)
+    new_bits = (word >> (idx % 32).to(torch.int32)) & 1
+    weight = torch.where(new_bits == 1, 2, -2).to(torch.int32)
+    weight = torch.where(in_budget, weight, 0)
+    return idx.to(torch.int32), weight, count
+
+
+def delta_correct(acc: torch.Tensor, im: ItemMemory, idx: torch.Tensor,
+                  weight: torch.Tensor,
+                  dmajor_f32: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. 6: acc_j += sum_{i in Delta} (q_i^t - q_i^{t-1}) h_{j,i}.
+
+    ``repro`` gathers ``budget`` rows of ``dmajor`` and takes an int32
+    einsum; integer products do not run on CUDA in torch, so the weights
+    scatter into a dense [..., D] float32 vector and one matmul against
+    ``dmajor`` (as float32; pass ``dmajor_f32`` to reuse a converted copy)
+    gives the correction. Exact: weights are in {-2, 0, +2}, dmajor in
+    {-1, +1}, and each row has at most ``budget`` nonzero terms, so every
+    partial sum is an integer of magnitude <= 2*budget << 2^24. Padding
+    scatters weight 0 onto dim 0 and adds nothing."""
+    if dmajor_f32 is None:
+        dmajor_f32 = im.dmajor.to(torch.float32)
+    D = dmajor_f32.shape[0]
+    wvec = torch.zeros(*idx.shape[:-1], D, dtype=torch.float32,
+                       device=idx.device)
+    wvec.scatter_add_(-1, idx.to(torch.int64), weight.to(torch.float32))
+    corr = torch.round(wvec @ dmajor_f32).to(torch.int32)
+    return acc + corr
+
+
+def readout(acc: torch.Tensor, d_eff) -> torch.Tensor:
+    """Cosine scores from integer accumulators (normalization 'shift')."""
+    d_eff = torch.as_tensor(d_eff, device=acc.device).to(torch.float32)
+    return acc.to(torch.float32) / d_eff
+
+
+# ---------------------------------------------------------------------------
+# Kernel dispatch (static plan cap, per-window bank choice)
+# ---------------------------------------------------------------------------
+
+def _plan_columns_bank_major(q_packed_all: torch.Tensor, im: ItemMemory,
+                             banks: int, planes: int, cfg: TorrConfig):
+    """(q_sel, im_sel) restricted to a static (banks, planes) plan's enabled
+    words, in the bank-major column order of ``bank_plane_sel`` (bank
+    boundaries stay word prefixes, the bank-prefix kernel's contract). Full
+    precision keeps the contiguous bank prefix of ``packed``; reduced
+    precision assembles contiguous slices of ``pmajor`` for the item memory
+    and gathers the query columns."""
+    if planes >= cfg.bit_planes:
+        we = banks * cfg.bank_words
+        return q_packed_all[:, :we], im.packed[:, :we]
+    sel = torch.as_tensor(bank_plane_sel(cfg, banks, planes),
+                          device=q_packed_all.device)
+    return (q_packed_all[:, sel],
+            pmajor_bank_blocks(im.pmajor, cfg, banks, planes))
+
+
+def plan_prefix_hamming(q_packed: torch.Tensor, im: ItemMemory,
+                        cfg: TorrConfig, *, planes: int,
+                        cap: int) -> torch.Tensor:
+    """Bank-prefix hamming over a (cap, planes) plan's enabled words:
+    int32 [N, M, cap]. Column selection + the ``bank_prefix_hamming``
+    kernel; the batched multi-stream step calls it once over its flattened
+    S x N_max proposal batch."""
+    q_sel, im_sel = _plan_columns_bank_major(q_packed, im, cap, planes, cfg)
+    return fw.bank_prefix_hamming(q_sel.contiguous(), im_sel.contiguous(),
+                                  cap=cap)
+
+
+def prefix_select(ham_prefix: torch.Tensor, banks: torch.Tensor,
+                  planes: int, cfg: TorrConfig) -> torch.Tensor:
+    """Accumulators from bank-prefix hamming counts: each row selects its
+    bank boundary and normalizes by its own D'. ``ham_prefix`` int32
+    [..., M, cap], ``banks`` int [...]; returns int32 [..., M]."""
+    banks = banks.to(torch.int64)
+    sel = (banks - 1)[..., None, None].expand(*ham_prefix.shape[:-1], 1)
+    ham = torch.gather(ham_prefix, -1, sel)[..., 0]
+    d_eff = cfg.d_eff_planned(banks, planes).to(torch.int32)
+    return d_eff[..., None] - 2 * ham
+
+
+def full_scores_all(q_packed_all: torch.Tensor, im: ItemMemory,
+                    banks: torch.Tensor, cfg: TorrConfig, *, planes: int,
+                    cap: int, mode: str = "prefix") -> torch.Tensor:
+    """Full-path integer accumulators for all proposals of a window.
+
+    ``q_packed_all`` int32 [..., N, W] and ``banks`` [...] (one bank choice
+    per window). ``mode="prefix"``: one ``bank_prefix_hamming`` pass over
+    the plan-capped prefix of every row of every window at once (the
+    multi-stream step's whole S x N_max batch), then each window selects
+    its bank boundary. Returns int32 [..., N, M], equal to :func:`full_dot`
+    under the same plan."""
+    if mode == "switch":
+        raise NotImplementedError(
+            "full_scores_all(mode='switch') (fused_scores kernel) comes with "
+            "a later part of the port (ROADMAP Queue 1 item 3)")
+    if mode != "prefix":
+        raise ValueError(f"unknown fused dispatch mode {mode!r}")
+    banks = torch.clamp(torch.as_tensor(banks, device=q_packed_all.device),
+                        1, cap)
+    lead, (N, W) = q_packed_all.shape[:-2], q_packed_all.shape[-2:]
+    ham_p = plan_prefix_hamming(
+        q_packed_all.reshape(-1, W), im, cfg, planes=planes, cap=cap,
+    ).reshape(*lead, N, cfg.M, cap)
+    banks_rows = banks[..., None].expand(ham_p.shape[:-2])
+    return prefix_select(ham_p, banks_rows, planes, cfg)

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library under ``_build/`` beside the sources (listed in
+``.gitignore``), named by a hash of the source and flags so a changed source
+never loads a stale library. All sources build at once, one ``nvcc`` process
+each, at first use; nothing is built or imported when the module is
+imported. A source that fails to build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# argtypes of each library's launch function (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32-bit ints)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "bank_prefix_hamming": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "sign_project_pack": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")] \
+        if os.environ.get("CUDA_HOME") else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{tag}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel whose library is missing, all in parallel, and
+    load them. Returns ``{name: ptxas report}`` for the sources built by
+    this call (empty when everything was already loaded)."""
+    with _lock:
+        todo = [n for n in SIGNATURES if n not in _libs]
+        reports: dict[str, str] = {}
+        procs = {}
+        if todo:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for n in todo:
+            out = _target(n)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        failed = []
+        for n, (p, tmp, out) in procs.items():
+            log, _ = p.communicate()
+            reports[n] = log
+            if p.returncode != 0:
+                failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
+            else:
+                os.replace(tmp, out)   # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        for n in todo:
+            lib = ctypes.CDLL(str(_target(n)))
+            fn = getattr(lib, f"{n}_launch")
+            fn.argtypes = SIGNATURES[n]
+            fn.restype = ctypes.c_int
+            _libs[n] = lib
+        return reports
+
+
+def launch_fn(name: str):
+    """The C launch function of kernel ``name``, building it if needed."""
+    if name not in _libs:
+        build_all()
+    return getattr(_libs[name], f"{name}_launch")

@@ -1,0 +1,98 @@
+"""Plain PyTorch versions of the port's kernels (shape/dtype-exact).
+
+Each wrapper in ``kernels.fused_window`` takes these for tensors that lie on
+the CPU, the tests hold them against ``repro.kernels.ref`` and the JAX
+kernels, and ``chip_smoke.py`` holds each CUDA kernel against them on the
+card. Packed words are int32 bit patterns (``core.hdc``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import hdc
+
+# Rows of q per chunk are chosen so one chunk's [rows, M, W] xor stays near
+# this many words: the plain versions never materialize the whole [N, M, W]
+# intermediate (2^29 words at the edge config's hoisted batch).
+_CHUNK_WORDS = 1 << 22
+
+
+def _row_chunks(N: int, M: int, W: int):
+    rows = max(1, _CHUNK_WORDS // max(1, M * W))
+    for n0 in range(0, N, rows):
+        yield n0, min(N, n0 + rows)
+
+
+def packed_hamming_ref(q_packed: torch.Tensor,
+                       im_packed: torch.Tensor) -> torch.Tensor:
+    """int32 [N, M] hamming distances from packed words."""
+    N, W = q_packed.shape
+    M = im_packed.shape[0]
+    out = torch.empty((N, M), dtype=torch.int32, device=q_packed.device)
+    for n0, n1 in _row_chunks(N, M, W):
+        x = q_packed[n0:n1, None, :] ^ im_packed[None, :, :]
+        out[n0:n1] = torch.sum(hdc.popcount32(x), dim=-1, dtype=torch.int32)
+    return out
+
+
+def bank_prefix_hamming_ref(q_packed: torch.Tensor, im_packed: torch.Tensor,
+                            *, cap: int) -> torch.Tensor:
+    """int32 [N, M, cap]: the cumulative hamming count of every query row
+    against every class row at each of the ``cap`` bank boundaries of the
+    (plan-capped, bank-major) word prefix — ``fused_window
+    .bank_prefix_hamming``."""
+    N, W = q_packed.shape
+    M = im_packed.shape[0]
+    if W % cap:
+        raise ValueError(f"W={W} must be a multiple of cap={cap}")
+    epw = W // cap
+    out = torch.empty((N, M, cap), dtype=torch.int32, device=q_packed.device)
+    for n0, n1 in _row_chunks(N, M, W):
+        x = q_packed[n0:n1, None, :] ^ im_packed[None, :, :]
+        pc = hdc.popcount32(x)                                    # [n, M, W]
+        per_bank = pc.reshape(n1 - n0, M, cap, epw).sum(-1, dtype=torch.int32)
+        out[n0:n1] = torch.cumsum(per_bank, dim=-1, dtype=torch.int32)
+    return out
+
+
+def sign_project_ref(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """int8 [N, D] = sign(z @ R.T), sign(0) -> +1."""
+    y = z.to(torch.float32) @ R.to(torch.float32).T
+    return torch.where(y >= 0.0, 1, -1).to(torch.int8)
+
+
+def sign_project_pack_ref(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """int32 words [N, D//32] = pack(sign(z @ R.T)) — ``fused_window
+    .sign_project_pack``."""
+    return hdc.pack_bits(sign_project_ref(z, R))
+
+
+def sign_pack_disagreement(z: torch.Tensor, R: torch.Tensor,
+                           words_a: torch.Tensor,
+                           words_b: torch.Tensor) -> dict:
+    """The agreement rule for two encodings of pack(sign(z @ R.T)).
+
+    Float32 products summed in different orders may differ in sign where
+    |y| is within rounding of zero, so no two implementations are
+    bit-equal. A bit is *decided* where |y| > tau with
+    tau = d * 2^-23 * sum_i |z_i * R_{D,i}| (the forward-error bound of a
+    length-d float32 dot, taken on this function's float32 product y);
+    decided bits must agree, and the undecided ones that differ must stay
+    at most 1e-4 of all bits. Returns the counts (the caller asserts)."""
+    z = z.to(torch.float32)
+    R = R.to(torch.float32)
+    d = z.shape[1]
+    y = z @ R.T
+    tau = d * 2.0 ** -23 * (z.abs().to(torch.float64)
+                            @ R.abs().to(torch.float64).T)
+    D = R.shape[0]
+    diff = hdc.unpack_bits(words_a ^ words_b, D) > 0     # differing bits
+    decided = y.abs().to(torch.float64) > tau
+    n_bits = diff.numel()
+    return {
+        "bits": n_bits,
+        "decided_differ": int(torch.sum(diff & decided)),
+        "undecided_differ": int(torch.sum(diff & ~decided)),
+        "ok": bool(torch.sum(diff & decided) == 0
+                   and torch.sum(diff & ~decided) <= 1e-4 * n_bits),
+    }

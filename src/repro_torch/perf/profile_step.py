@@ -1,0 +1,133 @@
+"""Where a serving step's time goes on one GPU (the port's counterpart of
+``repro.perf.profile_cell``).
+
+    PYTHONPATH=src python -m repro_torch.perf.profile_step
+
+Serves the edge config's multi-stream workload (the one ``chip_smoke.py``
+drives: 16 streams in 16 slots, windows from ``simulate_sequence`` as
+``launch/serve.py`` makes them) through ``StreamEngine``: 2 untimed warm-up
+steps, 3 steps timed on the host clock around ``sync()``, then one more
+step under ``torch.profiler``. Prints the wall time per step, the device
+busy time and idle share of the profiled step, its kernel launches, and the
+kernels and host ops that take the most time, with the card's name and
+power limit. Needs a GPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..configs.torr_edge import torr_edge
+from ..data import tood_synth as ts
+from ..device import smi
+from ..kernels import ops
+from ..serving import tood_pipelines as tp
+from ..serving.stream_engine import StreamEngine
+
+STREAMS, WARMUP, STEPS, TOP = 16, 2, 3, 12
+
+
+def edge_windows(world, cfg, n_streams: int, n_windows: int, n_max: int):
+    """Each stream's windows from ``simulate_sequence`` with at most
+    ``n_max`` proposals, padded to ``cfg.N_max``. ``n_max=cfg.N_max`` is the
+    traffic ``launch/serve.py`` serves; a smaller ``n_max`` cuts windows
+    down (``chip_smoke.py``'s labelled reuse check keeps K)."""
+    out = []
+    pad = cfg.N_max - n_max
+    for s in range(n_streams):
+        frames = ts.simulate_sequence(world, s % world.relevance.shape[0],
+                                      n_windows, seed=100 + s, n_max=n_max)
+        out.append([dataclasses.replace(
+            f, feats=np.pad(f.feats, ((0, pad), (0, 0))),
+            boxes=np.pad(f.boxes, ((0, pad), (0, 0))),
+            classes=np.pad(f.classes, (0, pad), constant_values=-1),
+            valid=np.pad(f.valid, (0, pad))) for f in frames])
+    return out
+
+
+def encode_step(frames, t, R) -> torch.Tensor:
+    """Step ``t``'s proposals of every stream in one encode call:
+    [S * N_max, D/32] packed words on ``R``'s device."""
+    feats = np.stack([fr[t].feats for fr in frames])
+    return ops.encode_packed(feats.reshape(-1, feats.shape[-1]), R,
+                             device=R.device)
+
+
+def submit_step(eng, frames, t, words) -> None:
+    """Submit each stream ``cam<s>`` its N_max rows of step ``t``'s words."""
+    n = eng.cfg.N_max
+    for s, fr in enumerate(frames):
+        eng.submit(f"cam{s}", words[s * n:(s + 1) * n], fr[t].valid,
+                   fr[t].boxes)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a GPU")
+    cfg = torr_edge()
+    T = WARMUP + STEPS + 1
+    world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim, n_tasks=5)
+    sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
+    frames = edge_windows(world, cfg, STREAMS, T, cfg.N_max)
+    R = torch.as_tensor(sys_.R).cuda()
+    eng = StreamEngine(cfg, sys_.im, n_slots=STREAMS)
+    for s in range(STREAMS):
+        eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
+
+    def one(t):
+        submit_step(eng, frames, t, encode_step(frames, t, R))
+        eng.step()
+        eng.sync()
+
+    for t in range(WARMUP):
+        one(t)
+    walls = []
+    for t in range(WARMUP, WARMUP + STEPS):
+        t0 = time.perf_counter()
+        one(t)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one(T - 1)
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if busy_ms <= 0:
+        raise SystemExit("the profiler recorded no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    print(smi("name,power.limit"))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "streams": STREAMS, "windows_per_step": STREAMS,
+        "wall_ms_per_step": walls,
+        "profiled_wall_ms": prof_wall,
+        "device_busy_ms": busy_ms,
+        # against the untraced steps' median wall: the profiler slows the
+        # host, not the kernels
+        "idle_share": 1.0 - busy_ms / float(np.median(walls)),
+        "kernel_launches": launches,
+        "top_kernels": [
+            {"name": e.key[:80], "count": e.count,
+             "ms": e.self_device_time_total / 1e3}
+            for e in top[:TOP]],
+        "top_host_ops": [
+            {"name": e.key[:80], "count": e.count,
+             "self_cpu_ms": e.self_cpu_time_total / 1e3}
+            for e in host[:TOP]],
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

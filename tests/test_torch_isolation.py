@@ -1,0 +1,51 @@
+"""The port stands alone: nothing under ``src/repro_torch/`` (nor
+``chip_smoke.py``) imports JAX or the JAX package ``repro``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_without_jax_or_repro():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'jaxlib') and v is not None"
+        " for k, v in sys.modules.items())\n"
+        "print('ok', len(%r))\n" % (modules,))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
