@@ -59,24 +59,42 @@ def delta_indices(q_new_packed: torch.Tensor, q_old_packed: torch.Tensor,
 def delta_correct(acc: torch.Tensor, im: ItemMemory, idx: torch.Tensor,
                   weight: torch.Tensor,
                   dmajor_f32: torch.Tensor | None = None) -> torch.Tensor:
-    """Eq. 6: acc_j += sum_{i in Delta} (q_i^t - q_i^{t-1}) h_{j,i}.
+    """Eq. 6: acc_j += sum_{i in Delta} (q_i^t - q_i^{t-1}) h_{j,i}, as
+    ``acc + delta_corrections(...)``."""
+    return acc + delta_corrections(idx, weight, im, dmajor_f32)
 
-    ``repro`` gathers ``budget`` rows of ``dmajor`` and takes an int32
-    einsum; integer products do not run on CUDA in torch, so the weights
-    scatter into a dense [..., D] float32 vector and one matmul against
-    ``dmajor`` (as float32; pass ``dmajor_f32`` to reuse a converted copy)
-    gives the correction. Exact: weights are in {-2, 0, +2}, dmajor in
-    {-1, +1}, and each row has at most ``budget`` nonzero terms, so every
-    partial sum is an integer of magnitude <= 2*budget << 2^24. Padding
-    scatters weight 0 onto dim 0 and adds nothing."""
+
+def delta_corrections(d_idx: torch.Tensor, d_weight: torch.Tensor,
+                      im: ItemMemory,
+                      dmajor_f32: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. 6 correction terms int32 [..., M] with
+    ``corr = sum_k d_weight[..., k] * dmajor[d_idx[..., k]]``.
+
+    The correction does not depend on the accumulator it lands on, so the
+    batched apply pass takes it for a whole dispatch at once. ``repro``
+    gathers ``budget`` rows per lane; here (as in ``repro``'s batched
+    apply) the weights scatter into a dense [..., D] float32 vector and one
+    matmul against ``dmajor`` (as float32; pass ``dmajor_f32`` to reuse a
+    converted copy) gives the terms. Exact, and so TF32 must stay off:
+    weights are in {-2, 0, +2}, dmajor in {-1, +1} and each row has at most
+    ``budget`` nonzero terms, so every partial sum is an integer of
+    magnitude <= 2*budget << 2^24, which float32 holds exactly in any
+    order; TF32 would round the operands' products. Padding scatters weight
+    0 onto dim 0 and adds nothing."""
     if dmajor_f32 is None:
         dmajor_f32 = im.dmajor.to(torch.float32)
     D = dmajor_f32.shape[0]
-    wvec = torch.zeros(*idx.shape[:-1], D, dtype=torch.float32,
-                       device=idx.device)
-    wvec.scatter_add_(-1, idx.to(torch.int64), weight.to(torch.float32))
-    corr = torch.round(wvec @ dmajor_f32).to(torch.int32)
-    return acc + corr
+    wvec = torch.zeros(*d_idx.shape[:-1], D, dtype=torch.float32,
+                       device=d_idx.device)
+    wvec.scatter_add_(-1, d_idx.to(torch.int64), d_weight.to(torch.float32))
+    return torch.round(wvec @ dmajor_f32).to(torch.int32)
+
+
+def delta_apply(acc: torch.Tensor, im: ItemMemory, idx: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    """Eq. 6 through the ``delta_update`` kernel (reads only the flipped
+    rows of ``dmajor``), equal to :func:`delta_correct`."""
+    return fw.delta_apply(acc, im.dmajor, idx, weight)
 
 
 def readout(acc: torch.Tensor, d_eff) -> torch.Tensor:
@@ -132,26 +150,94 @@ def prefix_select(ham_prefix: torch.Tensor, banks: torch.Tensor,
 
 def full_scores_all(q_packed_all: torch.Tensor, im: ItemMemory,
                     banks: torch.Tensor, cfg: TorrConfig, *, planes: int,
-                    cap: int, mode: str = "prefix") -> torch.Tensor:
+                    cap: int, mode: str = "switch") -> torch.Tensor:
     """Full-path integer accumulators for all proposals of a window.
 
     ``q_packed_all`` int32 [..., N, W] and ``banks`` [...] (one bank choice
-    per window). ``mode="prefix"``: one ``bank_prefix_hamming`` pass over
-    the plan-capped prefix of every row of every window at once (the
-    multi-stream step's whole S x N_max batch), then each window selects
-    its bank boundary. Returns int32 [..., N, M], equal to :func:`full_dot`
-    under the same plan."""
-    if mode == "switch":
-        raise NotImplementedError(
-            "full_scores_all(mode='switch') (fused_scores kernel) comes with "
-            "a later part of the port (ROADMAP Queue 1 item 3)")
-    if mode != "prefix":
-        raise ValueError(f"unknown fused dispatch mode {mode!r}")
+    per window). Returns int32 [..., N, M], equal to :func:`full_dot` under
+    the same plan, through one of two kernel dispatches:
+
+      * ``mode="switch"``: each window's bank choice slices its enabled
+        words and one ``fused_scores`` pass scans them (the branch JAX's
+        ``lax.switch`` picks on the device). The bank choices are read on
+        the host once per call, and windows that share a choice share a
+        launch.
+      * ``mode="prefix"``: one ``bank_prefix_hamming`` pass over the
+        plan-capped prefix of every row of every window at once (the
+        multi-stream step's whole S x N_max batch), then each window
+        selects its bank boundary; no host read."""
     banks = torch.clamp(torch.as_tensor(banks, device=q_packed_all.device),
                         1, cap)
     lead, (N, W) = q_packed_all.shape[:-2], q_packed_all.shape[-2:]
+    if mode == "switch":
+        q_win = q_packed_all.reshape(-1, N, W)
+        choice = banks.reshape(-1).tolist()      # the one host read
+        out = torch.empty((len(choice), N, cfg.M), dtype=torch.int32,
+                          device=q_packed_all.device)
+        for b in sorted(set(choice)):
+            wins = [i for i, c in enumerate(choice) if c == b]
+            q_sel, im_sel = _plan_columns_bank_major(
+                q_win[wins].reshape(-1, W), im, b, planes, cfg)
+            acc, _best, _top2 = fw.fused_scores(
+                q_sel.contiguous(), im_sel.contiguous(),
+                d_eff=int(cfg.d_eff_planned(b, planes)))
+            out[wins] = acc.reshape(len(wins), N, cfg.M)
+        return out.reshape(*lead, N, cfg.M)
+    if mode != "prefix":
+        raise ValueError(f"unknown fused dispatch mode {mode!r}")
     ham_p = plan_prefix_hamming(
         q_packed_all.reshape(-1, W), im, cfg, planes=planes, cap=cap,
     ).reshape(*lead, N, cfg.M, cap)
     banks_rows = banks[..., None].expand(ham_p.shape[:-2])
     return prefix_select(ham_p, banks_rows, planes, cfg)
+
+
+def compact_full_scores(q_flat: torch.Tensor, full_mask: torch.Tensor,
+                        banks_flat: torch.Tensor, im: ItemMemory,
+                        cfg: TorrConfig, *, planes: int, cap: int,
+                        bucket_cap: int) -> torch.Tensor:
+    """Compact-then-compute full-path accumulators: int32 [R, M], exact on
+    every ``full_mask`` row and zero elsewhere (the apply pass never reads
+    those).
+
+    The decide pass already produced the path vector, so the bank-prefix
+    scan runs only over the full-path rows, compacted into a dense bucket
+    of the static ``bucket_cap`` rows (a ``policy.bucket_ladder`` tier):
+    a row's bucket position is its rank among the full rows (a cumulative
+    sum), unused positions point past the end and are dropped, so no
+    compaction step reads the mask on the host. Each bucket row selects its
+    own window's bank boundary. The count of full rows is read on the host
+    once per call to pick between the bucket and, when it overflows the
+    tier, the hoisted all-rows pass — exact either way."""
+    R = q_flat.shape[0]
+    dev = q_flat.device
+    bucket_cap = min(int(bucket_cap), R)
+    banks_flat = torch.clamp(torch.as_tensor(banks_flat, device=dev), 1, cap)
+    if int(torch.sum(full_mask)) > bucket_cap:   # overflow: hoisted pass
+        ham = plan_prefix_hamming(q_flat, im, cfg, planes=planes, cap=cap)
+        acc = prefix_select(ham, banks_flat, planes, cfg)
+        return torch.where(full_mask[:, None], acc, 0)
+    pos = torch.cumsum(full_mask.to(torch.int64), 0) - 1
+    pos = torch.where(full_mask, pos, bucket_cap)         # bucket_cap = drop
+    rows = torch.full((bucket_cap + 1,), R, dtype=torch.int64, device=dev)
+    rows.scatter_(0, pos, torch.arange(R, device=dev))
+    rows = rows[:bucket_cap]                      # fill value R = unused
+    safe = torch.clamp(rows, max=R - 1)
+    ham_b = plan_prefix_hamming(q_flat[safe], im, cfg, planes=planes,
+                                cap=cap)                  # [bucket, M, cap]
+    acc_b = prefix_select(ham_b, banks_flat[safe], planes, cfg)
+    out = torch.zeros((R + 1, cfg.M), dtype=torch.int32, device=dev)
+    out[rows] = acc_b                             # unused rows land in R
+    return out[:R]
+
+
+def lookup_hamming_all(q_packed_all: torch.Tensor, entries: torch.Tensor,
+                       wmask: torch.Tensor) -> torch.Tensor:
+    """Batched associative-lookup hamming table int32 [..., N, K]: masked
+    distances of every query against every entry
+    (``ops.masked_hamming_all``, the batched decide pass's PSU primitive).
+    ``entries`` may be the cache snapshot's packed queries or the proposal
+    batch itself; ``wmask`` [..., W] may differ per window."""
+    from ..kernels import ops
+
+    return ops.masked_hamming_all(q_packed_all, entries, wmask)

@@ -37,6 +37,21 @@ def select_path(rho: torch.Tensor, delta_count: torch.Tensor,
     ).to(torch.int32)
 
 
+def intra_window_coupled(actions: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Conflict-set predicate of the batched decide pass: bool [..., N],
+    True where proposal i's path decision could depend on an earlier
+    proposal of the same window — some valid j < i took a cache-writing
+    path (delta or full). Bypass only touches ages, which can move a later
+    LRU choice but never a later (action, idx, rho, |Delta|). A superset:
+    a coupled proposal may still decide as it would on the frozen
+    snapshot."""
+    writes = torch.logical_and(
+        valid, torch.logical_or(actions == PATH_DELTA, actions == PATH_FULL)
+    ).to(torch.int32)
+    return (torch.cumsum(writes, dim=-1) - writes) > 0
+
+
 # Shared Sec. 4.3 cycle-cost math (plain arithmetic: Python ints or tensors).
 
 PROPOSAL_OVERHEAD_CYCLES = 64  # pipelined PSU + reasoner + sort constant
@@ -69,6 +84,33 @@ def window_cycles(n_full, n_delta, banks, cfg: TorrConfig):
     """Cycle estimate per Sec. 4.3: full = D'*ceil(M/W), delta =
     |Dmax|*ceil(M/W), plus a per-proposal overhead."""
     return window_cycles_deff(n_full, n_delta, banks * cfg.bank_dims, cfg)
+
+
+# Compact-dispatch bucket ladder: the static bucket capacities the compact
+# lowering pads its full-path rows to, shared by the pipeline and the
+# engine's load-aware auto dispatch (host ints).
+
+def bucket_ladder(n_rows: int) -> tuple[int, ...]:
+    """Bucket capacities for a flattened batch of ``n_rows``: powers of two
+    below ``n_rows``, then ``n_rows`` itself (the no-savings tier)."""
+    if n_rows < 1:
+        raise ValueError(f"n_rows={n_rows} must be >= 1")
+    caps = []
+    c = 1
+    while c < n_rows:
+        caps.append(c)
+        c *= 2
+    caps.append(n_rows)
+    return tuple(caps)
+
+
+def bucket_tier(n_rows: int, want: int) -> int:
+    """Smallest ladder capacity >= ``want`` (clamped to [1, n_rows])."""
+    want = max(1, min(int(want), n_rows))
+    for c in bucket_ladder(n_rows):
+        if c >= want:
+            return c
+    return n_rows
 
 
 def select_banks(n_objects: torch.Tensor, queue_depth: torch.Tensor,

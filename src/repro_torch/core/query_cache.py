@@ -98,6 +98,41 @@ def nearest(cache: CacheState, q_packed: torch.Tensor, cfg: TorrConfig,
     return idx.to(torch.int32), rho_i, ham_i
 
 
+def hamming_all(cache, q_packed_all: torch.Tensor, cfg: TorrConfig, banks,
+                planes: int | None = None) -> torch.Tensor:
+    """Masked hamming of every query against every cache entry: int32
+    [..., N, K] under the (banks, planes) plan's word mask — one batched
+    lookup pass in place of N per-proposal :func:`nearest` scans. Reads
+    only ``packed``, so it takes a :class:`CacheState` or a
+    :class:`MetaCache`; the sums equal :func:`nearest`'s."""
+    from . import aligner
+
+    planes = cfg.bit_planes if planes is None else planes
+    wmask = plan_word_mask(cfg, torch.as_tensor(banks,
+                                                device=q_packed_all.device),
+                           planes)
+    return aligner.lookup_hamming_all(q_packed_all, cache.packed, wmask)
+
+
+def nearest_all(cache, q_packed_all: torch.Tensor, cfg: TorrConfig, banks,
+                planes: int | None = None):
+    """Batched :func:`nearest`: (idx [..., N], rho [..., N], ham [..., N])
+    of every query against one frozen cache snapshot (no intra-window
+    updates). The same integers, the same Eq. 5 float32 expression and the
+    same first-maximum ties as :func:`nearest` per row."""
+    planes = cfg.bit_planes if planes is None else planes
+    banks = torch.as_tensor(banks, device=q_packed_all.device)
+    ham = hamming_all(cache, q_packed_all, cfg, banks, planes)
+    d_eff = cfg.d_eff_planned(banks.to(torch.int32),
+                              planes).to(torch.float32)
+    rho = 1.0 - 2.0 * ham.to(torch.float32) / d_eff[..., None, None]
+    rho = torch.where(cache.valid[..., None, :], rho, float("-inf"))
+    idx = torch.argmax(rho, dim=-1)
+    rho_i = torch.gather(rho, -1, idx[..., None])[..., 0]
+    ham_i = torch.gather(ham, -1, idx[..., None])[..., 0]
+    return idx.to(torch.int32), rho_i, ham_i
+
+
 def lru_slot(cache: CacheState) -> torch.Tensor:
     """Slot to evict: first invalid entry, else the oldest."""
     score = torch.where(cache.valid, cache.age, INT32_MAX)
@@ -119,6 +154,48 @@ def write_entry(cache: CacheState, slot: torch.Tensor, *, packed, acc,
         margin=_set_rows(cache.margin, slot, margin),
         age=age,
         valid=_set_rows(cache.valid, slot, True),
+    )
+
+
+@dataclasses.dataclass
+class MetaCache:
+    """The decision-relevant slice of :class:`CacheState`: everything later
+    path decisions in the same window can observe (packed queries, plan
+    tags, age, validity) and nothing else. The compact dispatch's decide
+    pass carries this view so the [K, M] value arrays never ride its loop.
+    :func:`nearest` and :func:`lru_slot` take it in place of a
+    :class:`CacheState`."""
+
+    packed: torch.Tensor    # int32 [K, D//32]
+    acc_tag: torch.Tensor   # int32 [K]
+    age: torch.Tensor       # int32 [K]
+    valid: torch.Tensor     # bool  [K]
+
+
+def meta_view(cache: CacheState) -> MetaCache:
+    return MetaCache(packed=cache.packed, acc_tag=cache.acc_tag,
+                     age=cache.age, valid=cache.valid)
+
+
+def meta_touch(meta: MetaCache, slot: torch.Tensor) -> MetaCache:
+    """Metadata image of :func:`touch`: rejuvenate, content untouched."""
+    age = _set_rows(meta.age + 1, slot.to(torch.int64), 0)
+    return dataclasses.replace(meta, age=age)
+
+
+def meta_write(meta: MetaCache, slot: torch.Tensor, *, packed,
+               acc_tag) -> MetaCache:
+    """Metadata image of :func:`write_entry`: refresh one entry's packed
+    query and plan tag and rejuvenate it (everyone else ages), without the
+    value fields the decide pass cannot know yet. The two must stay
+    update-for-update identical or the decide and apply passes diverge."""
+    slot = slot.to(torch.int64)
+    return MetaCache(
+        packed=_set_rows(meta.packed, slot, packed),
+        acc_tag=_set_rows(meta.acc_tag, slot,
+                          torch.as_tensor(acc_tag).to(torch.int32)),
+        age=_set_rows(meta.age + 1, slot, 0),
+        valid=_set_rows(meta.valid, slot, True),
     )
 
 

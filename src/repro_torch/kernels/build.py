@@ -6,6 +6,11 @@ shared library under ``_build/`` beside the sources (listed in
 never loads a stale library. All sources build at once, one ``nvcc`` process
 each, at first use; nothing is built or imported when the module is
 imported. A source that fails to build raises: there is no fallback.
+
+The wrappers share :func:`route` (a CPU tensor takes the plain version, a
+CUDA tensor the kernel) and :func:`launch`, which runs a kernel on the
+current CUDA stream, raises on a launch error and adds one to the kernel's
+``LAUNCHES`` count, so a run can show that its path went through it.
 """
 from __future__ import annotations
 
@@ -28,7 +33,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bank_prefix_hamming": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sign_project_pack": (_P, _P, _P, _I, _I, _I, _P),
+    "fused_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "delta_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "packed_hamming_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
+
+LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -95,3 +105,38 @@ def launch_fn(name: str):
     if name not in _libs:
         build_all()
     return getattr(_libs[name], f"{name}_launch")
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def route(name: str, *tensors) -> bool:
+    """True to launch the CUDA kernel, False for the plain CPU version."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs on different devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return True
+
+
+def launch(name: str, device, *args) -> None:
+    """Run kernel ``name`` on ``device``'s current stream with ``args``
+    (tensors pass their data pointers); raise if the launch failed."""
+    import torch
+
+    fn = launch_fn(name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1

@@ -1,10 +1,19 @@
-"""The port's hand-written CUDA kernels for the multi-stream serving path.
+"""The port's hand-written CUDA kernels for the window step's full path and
+encode front-end.
 
+  * :func:`fused_scores` — one pass fusing the gated XNOR-popcount scan, the
+    integer accumulation (``acc = D' - 2*hamming``) and the argmax / top-2
+    readout, over a static plan's pre-sliced words. The switch lowering
+    (the single-window step and the serial multi-stream step) runs it once
+    per window on its bank choice (``core.aligner.full_scores_all``).
   * :func:`bank_prefix_hamming` — one pass over the plan-capped word prefix
     emitting the hamming count at every bank boundary, int32 [N, M, cap]. The
     batched multi-stream step hoists it over its flattened S x N_max
     proposal batch; a per-window bank choice then selects its boundary with
-    one gather (``core.aligner.prefix_select``).
+    one gather (``core.aligner.prefix_select``). The compact dispatch runs it
+    over a bucket of only the full-path proposals.
+  * :func:`delta_apply` — the delta path's Eq. 6 scatter-accumulate through
+    the ``delta_update`` kernel.
   * :func:`sign_project_pack` — encode front-end: sign-projection fused with
     bit-packing, writing the packed words directly.
 
@@ -12,41 +21,47 @@ Every wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty`` and launches on the current CUDA stream. A
 tensor on the CPU takes the plain version in ``kernels.ref``; a CUDA tensor
 launches the kernel or raises (no fallback). ``LAUNCHES`` counts kernel
-launches per wrapper, so a run can show that its path went through them.
+launches per kernel (shared with the other kernel modules).
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, ref
-
-LAUNCHES = {name: 0 for name in build.SIGNATURES}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from .delta_update import delta_update
 
 
-def _route(name: str, *tensors: torch.Tensor) -> bool:
-    """True to launch the CUDA kernel, False for the plain CPU version."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: inputs on different devices {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    return True
+def fused_scores(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
+                 d_eff: int):
+    """(acc int32 [N, M], best int32 [N], top2 int32 [N, 2]) in one pass.
 
-
-def _check(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    ``q_packed`` int32 [N, W] and ``im_packed`` int32 [M, W] hold a static
+    plan's enabled words in one column order; ``acc = d_eff - 2*hamming``.
+    ``best`` is the first index of each row's maximum (``argmax``) and
+    ``top2`` the two highest accumulators, ``top2[:, 1]`` being the largest
+    value at any other index (equal to ``top2[:, 0]`` on a tied maximum;
+    INT32_MIN when M < 2)."""
+    name = "fused_scores"
+    if q_packed.dtype != torch.int32 or im_packed.dtype != torch.int32:
+        raise TypeError(f"{name}: packed words must be int32")
+    if q_packed.dim() != 2 or im_packed.dim() != 2 or \
+            q_packed.shape[1] != im_packed.shape[1]:
+        raise ValueError(f"{name}: expected [N, W] and [M, W]")
+    N, W = q_packed.shape
+    M = im_packed.shape[0]
+    if M < 1:
+        raise ValueError(f"{name}: the item memory has no classes")
+    if not build.route(name, q_packed, im_packed):
+        return ref.fused_scores_ref(q_packed, im_packed, d_eff=d_eff)
+    dev = q_packed.device
+    acc = torch.empty((N, M), dtype=torch.int32, device=dev)
+    best = torch.empty((N,), dtype=torch.int32, device=dev)
+    top2 = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    if N:
+        build.launch(name, dev, q_packed, im_packed, acc, best, top2, N, M,
+                     W, int(d_eff))
+    return acc, best, top2
 
 
 def bank_prefix_hamming(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
@@ -65,19 +80,22 @@ def bank_prefix_hamming(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
     if W != W2 or cap < 1 or W % cap:
         raise ValueError(f"{name}: W={W}, W_im={W2}, cap={cap}: the word "
                          "counts must agree and divide by cap")
-    if not _route(name, q_packed, im_packed):
+    if not build.route(name, q_packed, im_packed):
         return ref.bank_prefix_hamming_ref(q_packed, im_packed, cap=cap)
     out = torch.empty((N, M, cap), dtype=torch.int32, device=q_packed.device)
-    if N == 0 or M == 0:
-        return out
-    fn = build.launch_fn(name)
-    with torch.cuda.device(q_packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q_packed.data_ptr(), im_packed.data_ptr(), out.data_ptr(),
-                 N, M, W, cap, stream)
-    _check(name, err)
-    LAUNCHES[name] += 1
+    if N and M:
+        build.launch(name, q_packed.device, q_packed, im_packed, out, N, M,
+                     W, cap)
     return out
+
+
+def delta_apply(acc: torch.Tensor, dmajor: torch.Tensor, idx: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    """Sparse Eq. 6 scatter-accumulate
+    ``acc + sum_k weight[k] * dmajor[idx[k], :]`` through the
+    ``delta_update`` kernel; ``acc`` [..., M] with the matching leading axes
+    on ``idx``/``weight`` [..., budget] (the multi-stream loop's [S])."""
+    return delta_update(acc, dmajor, idx, weight)
 
 
 def sign_project_pack(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
@@ -95,15 +113,9 @@ def sign_project_pack(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     D = R.shape[0]
     if D % 32:
         raise ValueError(f"{name}: D={D} must be a multiple of 32")
-    if not _route(name, z, R):
+    if not build.route(name, z, R):
         return ref.sign_project_pack_ref(z, R)
     out = torch.empty((N, D // 32), dtype=torch.int32, device=z.device)
-    if N == 0 or D == 0:
-        return out
-    fn = build.launch_fn(name)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(z.data_ptr(), R.data_ptr(), out.data_ptr(), N, d, D, stream)
-    _check(name, err)
-    LAUNCHES[name] += 1
+    if N and D:
+        build.launch(name, z.device, z, R, out, N, d, D)
     return out

@@ -23,9 +23,20 @@ def _row_chunks(N: int, M: int, W: int):
         yield n0, min(N, n0 + rows)
 
 
+INT32_MIN = -(2 ** 31)
+
+
 def packed_hamming_ref(q_packed: torch.Tensor,
                        im_packed: torch.Tensor) -> torch.Tensor:
-    """int32 [N, M] hamming distances from packed words."""
+    """int32 [N, M] hamming distances from packed words; with a leading
+    batch axis on both ([S, N, W], [S, M, W]) int32 [S, N, M] —
+    ``xnor_popcount_sim.packed_hamming_batched``."""
+    if q_packed.dim() == 3:
+        out = torch.empty((*q_packed.shape[:2], im_packed.shape[1]),
+                          dtype=torch.int32, device=q_packed.device)
+        for s in range(q_packed.shape[0]):
+            out[s] = packed_hamming_ref(q_packed[s], im_packed[s])
+        return out
     N, W = q_packed.shape
     M = im_packed.shape[0]
     out = torch.empty((N, M), dtype=torch.int32, device=q_packed.device)
@@ -33,6 +44,31 @@ def packed_hamming_ref(q_packed: torch.Tensor,
         x = q_packed[n0:n1, None, :] ^ im_packed[None, :, :]
         out[n0:n1] = torch.sum(hdc.popcount32(x), dim=-1, dtype=torch.int32)
     return out
+
+
+def fused_scores_ref(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
+                     d_eff: int):
+    """(acc [N, M], best [N], top2 [N, 2]) — ``fused_window.fused_scores``:
+    ``acc = d_eff - 2*hamming``, ``best`` the first argmax, ``top2`` the two
+    largest values (``lax.top_k(acc, 2)[0]``; INT32_MIN second when M < 2)."""
+    acc = d_eff - 2 * packed_hamming_ref(q_packed, im_packed)
+    best = torch.argmax(acc, dim=-1).to(torch.int32)
+    if acc.shape[-1] < 2:
+        top2 = torch.cat([acc, torch.full_like(acc, INT32_MIN)], dim=-1)
+    else:
+        top2 = torch.topk(acc, 2, dim=-1).values
+    return acc, best, top2
+
+
+def delta_update_ref(acc: torch.Tensor, dmajor: torch.Tensor,
+                     idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """int32 [..., M]: acc + sum_k weight[..., k] * dmajor[idx[..., k], :] —
+    ``delta_update.delta_update``. Indices clamp to [0, D), as JAX's
+    gather does."""
+    idx = torch.clamp(idx.to(torch.int64), 0, dmajor.shape[0] - 1)
+    rows = dmajor[idx].to(torch.int32)                    # [..., budget, M]
+    return acc + torch.sum(weight[..., None] * rows, dim=-2,
+                           dtype=torch.int32)
 
 
 def bank_prefix_hamming_ref(q_packed: torch.Tensor, im_packed: torch.Tensor,

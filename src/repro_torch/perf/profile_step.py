@@ -1,19 +1,25 @@
 """Where a serving step's time goes on one GPU (the port's counterpart of
 ``repro.perf.profile_cell``).
 
-    PYTHONPATH=src python -m repro_torch.perf.profile_step
+    PYTHONPATH=src python -m repro_torch.perf.profile_step \
+        [--lowering prefix,serial,compact] [--traffic served,reuse]
 
 Serves the edge config's multi-stream workload (the one ``chip_smoke.py``
-drives: 16 streams in 16 slots, windows from ``simulate_sequence`` as
-``launch/serve.py`` makes them) through ``StreamEngine``: 2 untimed warm-up
-steps, 3 steps timed on the host clock around ``sync()``, then one more
-step under ``torch.profiler``. Prints the wall time per step, the device
-busy time and idle share of the profiled step, its kernel launches, and the
-kernels and host ops that take the most time, with the card's name and
-power limit. Needs a GPU.
+drives: 16 streams in 16 slots) through ``StreamEngine`` on each named
+lowering — ``prefix`` (the batched step's default), ``serial`` (the serial
+switch engine) and ``compact`` (the compact dispatch, batched decide) — and
+traffic: ``served``, windows from ``simulate_sequence`` as
+``launch/serve.py`` makes them, or ``reuse``, the same streams cut to K
+proposals per window. Each pair runs 2 untimed warm-up steps, 3 steps timed
+on the host clock around ``sync()``, then one more step under
+``torch.profiler``, and prints one JSON object: the wall time per step,
+windows/s, the device busy time and idle share of the profiled step, its
+kernel launches, and the kernels and host ops that take the most time,
+after the card's name and power limit. Needs a GPU.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -29,6 +35,8 @@ from ..serving import tood_pipelines as tp
 from ..serving.stream_engine import StreamEngine
 
 STREAMS, WARMUP, STEPS, TOP = 16, 2, 3, 12
+LOWERINGS = {"prefix": {}, "serial": dict(serial=True),
+             "compact": dict(fused="compact")}
 
 
 def edge_windows(world, cfg, n_streams: int, n_windows: int, n_max: int):
@@ -65,16 +73,13 @@ def submit_step(eng, frames, t, words) -> None:
                    fr[t].boxes)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a GPU")
-    cfg = torr_edge()
+def profile(cfg, sys_, world, lowering: str, traffic: str) -> dict:
+    """One (lowering, traffic) pair: warm-up, timed steps, a profiled step."""
     T = WARMUP + STEPS + 1
-    world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim, n_tasks=5)
-    sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
-    frames = edge_windows(world, cfg, STREAMS, T, cfg.N_max)
+    frames = edge_windows(world, cfg, STREAMS, T,
+                          cfg.N_max if traffic == "served" else cfg.K)
     R = torch.as_tensor(sys_.R).cuda()
-    eng = StreamEngine(cfg, sys_.im, n_slots=STREAMS)
+    eng = StreamEngine(cfg, sys_.im, n_slots=STREAMS, **LOWERINGS[lowering])
     for s in range(STREAMS):
         eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
 
@@ -99,24 +104,25 @@ def main() -> int:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
-    print(smi("name,power.limit"))
-    print(json.dumps({
+    wall = float(np.median(walls))
+    return {
         "device": torch.cuda.get_device_name(0),
+        "lowering": lowering, "traffic": traffic,
         "streams": STREAMS, "windows_per_step": STREAMS,
         "wall_ms_per_step": walls,
+        "windows_per_s": 1e3 * STREAMS / wall,
         "profiled_wall_ms": prof_wall,
         "device_busy_ms": busy_ms,
         # against the untraced steps' median wall: the profiler slows the
         # host, not the kernels
-        "idle_share": 1.0 - busy_ms / float(np.median(walls)),
-        "kernel_launches": launches,
+        "idle_share": 1.0 - busy_ms / wall,
+        "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [
             {"name": e.key[:80], "count": e.count,
              "ms": e.self_device_time_total / 1e3}
@@ -125,7 +131,34 @@ def main() -> int:
             {"name": e.key[:80], "count": e.count,
              "self_cpu_ms": e.self_cpu_time_total / 1e3}
             for e in host[:TOP]],
-    }, indent=1))
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lowering", default="prefix",
+                    help=f"comma list of {sorted(LOWERINGS)}")
+    ap.add_argument("--traffic", default="served",
+                    help="comma list of served, reuse")
+    args = ap.parse_args(argv)
+    lowerings = args.lowering.split(",")
+    traffics = args.traffic.split(",")
+    for name in lowerings:
+        if name not in LOWERINGS:
+            ap.error(f"unknown lowering {name!r}")
+    for name in traffics:
+        if name not in ("served", "reuse"):
+            ap.error(f"unknown traffic {name!r}")
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a GPU")
+    cfg = torr_edge()
+    world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim, n_tasks=5)
+    sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
+    print(smi("name,power.limit"))
+    for lowering in lowerings:
+        for traffic in traffics:
+            print(json.dumps(profile(cfg, sys_, world, lowering, traffic),
+                             indent=1), flush=True)
     return 0
 
 

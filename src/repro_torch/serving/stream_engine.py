@@ -19,6 +19,13 @@ Scheduling contract:
   * ``retire(stream_id)`` drops the stream's remaining backlog and frees
     the slot; admission asserts the recycled slot's queue is empty.
 
+``fused="auto"`` arms the load-aware kernel dispatch: every step the engine
+folds an earlier step's full-path fraction into an EWMA and picks between
+the hoisted lowering default and the reuse-aware compact dispatch
+(``fused="compact"`` with a ``core.policy.bucket_ladder`` tier sized to the
+predicted miss count). Every choice is bit-identical (compact overflow falls
+back exactly), so auto is purely a scheduling knob.
+
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 """
 from __future__ import annotations
@@ -31,11 +38,20 @@ import numpy as np
 import torch
 
 from ..convert import words_from_numpy
-from ..core import pipeline, query_cache
+from ..core import pipeline, policy, query_cache
 from ..core.item_memory import ItemMemory
 from ..core.pipeline import TorrState, WindowOutput
-from ..core.types import StreamBatch, TorrConfig, WindowTelemetry, map_tensors
+from ..core.types import (PATH_FULL, StreamBatch, TorrConfig,
+                          WindowTelemetry, map_tensors)
 from ..device import resolve_device
+
+# load-aware fused="auto" dispatch: EWMA weight of the newest folded step's
+# full-path fraction, and the headroom the predicted full count is padded
+# by before rounding up to a bucket-ladder tier (a mispredict is never
+# wrong, since the compact dispatch falls back exactly on overflow, but the
+# fallback rescans every row)
+AUTO_ALPHA = 0.3
+AUTO_HEADROOM = 2.0
 
 
 @dataclasses.dataclass
@@ -70,14 +86,29 @@ class StreamEngine:
     """Fixed-slot scheduler feeding ``torr_multi_stream_step``."""
 
     def __init__(self, cfg: TorrConfig, im: ItemMemory, n_slots: int = 16,
-                 fused: str | None = None, *, device=None):
+                 serial: bool = False, fused: str | None = None,
+                 bucket_cap: int | None = None, decide: str | None = None,
+                 *, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.im = im.to(self.device)
         self.n_slots = n_slots
-        # "prefix" (None) hoists the bank-prefix kernel over the whole step;
-        # "off" is the per-proposal oracle step
-        self._fused = fused
+        # `serial` runs the slots one after another through the
+        # single-window step; `fused` picks the full path's lowering (None
+        # = the lowering's default, "off" = the per-proposal oracle,
+        # "auto" = the load-aware compact-vs-hoisted choice per step);
+        # `bucket_cap` and `decide` configure the compact dispatch
+        self._serial = serial
+        self._auto = fused == "auto"
+        self._fused = None if self._auto else fused
+        self._bucket_cap = bucket_cap
+        self._decide = decide
+        # full-path fraction EWMA; starts pessimistic (a cold cache makes
+        # every proposal a miss), so auto begins on the hoisted lowering.
+        # The backlog holds the (path, n_valid) of dispatched steps; only
+        # entries at least one dispatch old are folded while serving
+        self._full_ewma = 1.0
+        self._tel_backlog: collections.deque = collections.deque()
         self._state: TorrState = pipeline.init_multi_stream_state(
             cfg, torch.zeros((n_slots, cfg.M)), self.device)
         self._pending = [collections.deque() for _ in range(n_slots)]
@@ -173,13 +204,59 @@ class StreamEngine:
         batch.queue_depth = torch.from_numpy(qd).to(self.device)
         return batch, served
 
+    # -- load-aware fused="auto" dispatch ------------------------------------
+
+    def _observe_path_mix(self, path, n_valid) -> None:
+        """Fold one step's full-path fraction into the EWMA. ``path`` is
+        the step's [S, N_max] path trace and ``n_valid`` the [S] valid
+        counts (host arrays); pad lanes report bypass, so the full count
+        needs no mask."""
+        nv = int(np.sum(n_valid))
+        if nv:
+            f = float(np.sum(np.asarray(path) == PATH_FULL)) / nv
+            self._full_ewma += AUTO_ALPHA * (f - self._full_ewma)
+
+    def flush_telemetry(self, keep: int = 0) -> None:
+        """Fold backlogged steps until ``keep`` remain. The engine keeps 1
+        while serving: reading the newest step's telemetry would wait for
+        the step that may still run on the device (0 waits for all)."""
+        while len(self._tel_backlog) > keep:
+            path, n_valid = self._tel_backlog.popleft()
+            self._observe_path_mix(path.cpu().numpy(), n_valid.cpu().numpy())
+
+    def _resolve_fused(self):
+        """(fused, bucket_cap, decide) for the next dispatch. Pinned modes
+        pass through. In auto mode the predicted full-path rows (EWMA x
+        lanes, padded by ``AUTO_HEADROOM``) round up to a bucket-ladder
+        tier: a tier below full capacity dispatches the compact lowering,
+        full capacity the lowering's hoisted default."""
+        if not self._auto:
+            return self._fused, self._bucket_cap, self._decide
+        self.flush_telemetry(keep=1)
+        n_rows = self.n_slots * self.cfg.N_max
+        want = int(np.ceil(self._full_ewma * n_rows * AUTO_HEADROOM))
+        tier = policy.bucket_tier(n_rows, want)
+        if tier >= n_rows:
+            return None, None, self._decide
+        return "compact", tier, self._decide
+
+    @property
+    def full_path_ewma(self) -> float:
+        """The auto dispatcher's current full-path fraction estimate."""
+        return self._full_ewma
+
     def step(self) -> Dict[object, tuple[WindowOutput, WindowTelemetry]]:
         """Drain one window per busy slot through the batched step."""
         batch, served = self._assemble()
         if not served:  # idle engine: skip the no-op device step
             return {}
+        fused, bucket_cap, decide = self._resolve_fused()
         self._state, out, tel = pipeline.torr_stream_batch_step(
-            self._state, self.im, batch, self.cfg, fused=self._fused)
+            self._state, self.im, batch, self.cfg, serial=self._serial,
+            fused=fused, bucket_cap=bucket_cap, decide=decide)
+        if self._auto:      # deferred fold: this step's telemetry waits
+            self._tel_backlog.append((tel.path, tel.n_valid))
+            self.flush_telemetry(keep=1)
         self.stats.steps += 1
         self.stats.windows += len(served)
         self.stats.pad_slots += self.n_slots - len(served)
@@ -204,16 +281,22 @@ class StreamEngine:
             torch.cuda.synchronize(self.device)
 
     def summary(self) -> Dict[str, float]:
-        """Engine counters as a flat dict."""
+        """Engine counters as a flat dict (folds every deferred step's
+        telemetry first)."""
+        self.flush_telemetry()
         s = dataclasses.asdict(self.stats)
         s["occupancy"] = self.stats.occupancy
+        if self._auto:
+            s["full_path_ewma"] = self._full_ewma
         return s
 
     def warmup(self) -> None:
         """Run one all-pad step outside any timed region (a state no-op:
         every lane takes the pad branch) so the kernels are built and
         loaded first; stats are not touched."""
+        fused, bucket_cap, decide = self._resolve_fused()
         pipeline.torr_stream_batch_step(self._state, self.im,
                                         self._empty_batch(), self.cfg,
-                                        fused=self._fused)
+                                        serial=self._serial, fused=fused,
+                                        bucket_cap=bucket_cap, decide=decide)
         self.sync()

@@ -1,6 +1,13 @@
-"""TOOD system construction and the cache-gated TorR pipeline (port of
-``repro.serving.tood_pipelines``; so far ``build_system`` and ``run_torr``
-on the prefix lowering).
+"""TOOD evaluation pipelines (port of ``repro.serving.tood_pipelines``):
+dense CLIP-proxy vs naive HDC vs TorR over the same synthetic world.
+
+  * ``dense`` — float cosine against class prototypes, task-weighted by the
+    ground-truth relevance table (the upper baseline; numpy, as in
+    ``repro``);
+  * ``hdc`` — sign-projected queries, a full scan every window, reasoner
+    weights always on (the paper's "SNN + naive HDC" baseline; numpy);
+  * ``torr`` — the cache-gated pipeline (``core.pipeline``) with query
+    cache, delta updates, aggressive bypass and D' gating, on the card.
 
 Item-memory construction mirrors how task knowledge is distilled into HDC:
 each concept code bundles its projected visual prototype with the task
@@ -16,7 +23,7 @@ import torch
 
 from ..core import pipeline, reasoner
 from ..core.item_memory import ItemMemory, build_item_memory
-from ..core.types import TorrConfig
+from ..core.types import TorrConfig, map_tensors
 from ..data import tood_synth as ts
 from ..device import resolve_device
 from ..kernels import ops
@@ -72,11 +79,41 @@ def build_system(world: ts.World, cfg: TorrConfig,
     return TorrSystem(cfg, R, im, task_w, graph)
 
 
+def run_dense(world: ts.World, frames, task_id: int):
+    """Float cosine x GT relevance (oracle baseline)."""
+    protos = world.prototypes
+    rel = world.relevance[task_id]
+    out = []
+    for f in frames:
+        z = f.feats / (np.linalg.norm(f.feats, axis=1, keepdims=True) + 1e-9)
+        s = z @ protos.T                          # [N, M]
+        score = np.max(s * rel[None, :], axis=1)
+        score[~f.valid] = -1e9
+        out.append(score)
+    return out
+
+
+def run_naive_hdc(sys: TorrSystem, frames, task_id: int):
+    """Full scan every window, reasoner always on, no reuse."""
+    w = sys.task_w[task_id]
+    codes = sys.im.bipolar.cpu().numpy().astype(np.float32)   # [M, D]
+    out = []
+    for f in frames:
+        q = np.sign(f.feats @ sys.R.T)
+        q[q == 0] = 1
+        s = (q @ codes.T) / sys.cfg.D                # [N, M]
+        score = np.max(s * w[None, :], axis=1)
+        score[~f.valid] = -1e9
+        out.append(score)
+    return out
+
+
 def run_torr(sys: TorrSystem, frames, task_id: int, queue_depth: int = 0,
              *, device=None):
-    """The cache-gated pipeline over one stream's frames on the prefix
-    lowering; returns (per-frame max scores with -1e9 on padding, telemetry
-    list). Runs on ``cuda`` unless ``device="cpu"``."""
+    """The cache-gated pipeline over one stream's frames on the
+    single-window step's default (switch) lowering; returns (per-frame max
+    scores with -1e9 on padding, telemetry list on the CPU). Runs on
+    ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     cfg = sys.cfg
     im = sys.im.to(dev)
@@ -89,10 +126,43 @@ def run_torr(sys: TorrSystem, frames, task_id: int, queue_depth: int = 0,
         state, res, tel = pipeline.torr_window_step(
             state, im, q, torch.as_tensor(f.valid, device=dev),
             torch.as_tensor(f.boxes, device=dev),
-            torch.tensor(queue_depth, dtype=torch.int32, device=dev), cfg,
-            fused="prefix")
+            torch.tensor(queue_depth, dtype=torch.int32, device=dev), cfg)
         score = torch.amax(res.scores, dim=1).cpu().numpy().copy()
         score[~f.valid] = -1e9
         out.append(score)
-        telems.append(tel)
+        telems.append(map_tensors(lambda x: x.cpu(), tel))
     return out, telems
+
+
+def evaluate_task(world, sys: TorrSystem, task_id: int, n_frames: int = 120,
+                  seed: int = 0, difficulty: float = 0.55,
+                  queue_depth: int = 0, *, device=None) -> dict:
+    """AP@0.5 of the three pipelines on one task's simulated sequence, and
+    TorR's path mix (padding proposals count as bypass, as in ``repro``).
+    TorR runs on ``cuda`` unless ``device="cpu"``."""
+    frames = ts.simulate_sequence(world, task_id, n_frames, seed,
+                                  difficulty=difficulty,
+                                  n_max=sys.cfg.N_max)
+    boxes = [f.boxes for f in frames]
+    gts = [f.gt_boxes for f in frames]
+
+    dense = ts.average_precision(run_dense(world, frames, task_id), boxes, gts)
+    naive = ts.average_precision(run_naive_hdc(sys, frames, task_id), boxes,
+                                 gts)
+    torr_scores, telems = run_torr(sys, frames, task_id, queue_depth,
+                                   device=device)
+    torr = ts.average_precision(torr_scores, boxes, gts)
+    paths = np.concatenate([t.path.numpy() for t in telems])
+    return {
+        "task": ts.TASKS[task_id],
+        "ap_dense": 100 * dense,
+        "ap_naive_hdc": 100 * naive,
+        "ap_torr": 100 * torr,
+        "path_mix": {
+            "bypass": float(np.mean(paths == 0)),
+            "delta": float(np.mean(paths == 1)),
+            "full": float(np.mean(paths == 2)),
+        },
+        "telemetry": telems,
+        "scores": torr_scores,
+    }

@@ -133,7 +133,7 @@ def test_window_step_state_round_trips_through_convert():
     q2p = pack_np(q2)
     tstate, tout, ttel = pipeline.torr_window_step(
         tstate, im, torch.from_numpy(q2p.view(np.int32)), ones, zeros, 0,
-        tcfg)
+        tcfg, fused="prefix")
     jstate, jout, jtel = jstep(jstate, jm, jnp.asarray(q2p),
                                jnp.asarray(ones), jnp.asarray(zeros),
                                jnp.int32(0), jcfg)
