@@ -33,11 +33,33 @@ printing its result line):
      reuse traffic auto must reach the compact lowering;
   6. ``evaluate_task`` for the five TOOD tasks at the edge config on the
      card (AP@0.5 of TorR, dense and naive HDC, and TorR's path mix), one
-     task's per-frame scores equal to the same run on the CPU.
+     task's per-frame scores equal to the same run on the CPU;
+  7. the int8 encode entry point ``ops.sign_project`` (the
+     ``sign_project`` kernel) on one step's proposal features and at its
+     benchmark caller's shape, held to the plain version by the agreement
+     rule;
+  8. the plan ladder: every level of ``build_ladder(torr_edge())`` latched
+     with ``StreamEngine.set_plan`` on the prefix and compact engines (16
+     streams, 2 windows each of both traffics, every step timed), and on
+     the switch lowering of ``torr_window_step(plan=)`` for one stream;
+     every lowering bit-equal to the card's prefix engine under the same
+     plan, the telemetry's planes and bank cap checked, and the card's
+     prefix engine equal to the CPU engine at two levels over the reuse
+     windows;
+  9. a governed run: the compact engine at RT-60 under a ``Governor`` fed
+     by a ``DeadlineTracker`` and ``telemetry_cost``, one plan per step
+     (the async engine's dispatch loop, written out on the host), then its
+     ``plan_log`` replayed with ``set_plan`` on a fresh prefix engine,
+     bit-equal;
+ 10. the device-idle share of every level and lowering of phase 8 on the
+     served traffic (its second window again, under ``torch.profiler``),
+     last, because a profiled step slows the steps after it.
 
 Each path's kernel launches are counted from zero around that path's run
-and must all be above zero. The line before the last is the per-kernel JSON
-report; the last line is ``{"ok": true, "device": {...}}``.
+and must all be above zero. Each phase's seconds are logged as
+``[phase]`` lines. The plan-ladder rows (ms/step, windows/s, idle share)
+and the per-kernel report are printed as JSON before the last line, which
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -71,6 +93,11 @@ REUSE_WINDOWS = 10
 CPU_WINDOWS = 4             # windows the CPU reference engines replay
 SERIAL_WINDOWS = 2          # the serial engine serves the first windows
 EVAL_FRAMES = 4             # frames per task of the evaluate_task phase
+PLAN_WINDOWS = 2            # windows per stream of each plan-ladder run
+# ladder levels, as (banks, planes), at which the card's prefix engine is
+# held to the CPU engine; (1, 1) carries the tau offsets
+PLAN_CPU_LEVELS = ((8, 2), (1, 1))
+GOVERNED_RT = "RT-60"
 
 
 def log(*a):
@@ -175,10 +202,11 @@ def _check(name, label, got, want):
 
 def phase_kernels(cfg, im_cuda):
     """Every kernel vs its plain version on the card, then timed."""
-    from repro_torch.core import aligner, hdc
+    from repro_torch.core import aligner, hdc, item_memory
     from repro_torch.kernels import delta_update as du
     from repro_torch.kernels import fused_window as fw
     from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_project as sp
     from repro_torch.kernels import xnor_popcount_sim as xps
 
     dev = torch.device("cuda")
@@ -191,17 +219,24 @@ def phase_kernels(cfg, im_cuda):
                              dtype=torch.int32).to(dev)
 
     # bank_prefix_hamming: the hoisted S x N_max batch at full precision,
-    # a reduced plan (planes=2, cap=4) through the column selection, and a
-    # ragged shape
+    # reduced plans through the column selection — (cap=4, planes=2), the
+    # ladder's (8, 1) (pmajor blocks, 64 words) and (1, 1) (8 words) — and
+    # a ragged shape
     S = STREAMS
     N, W = S * cfg.N_max, cfg.words
     q = words(N, W)
     im_w = im_cuda.packed
     M = im_w.shape[0]
+
+    def plan_cols(qq, cap, planes):
+        return tuple(x.contiguous() for x in aligner._plan_columns_bank_major(
+            qq, im_cuda, cap, planes, cfg))
+
     for label, (qq, hh, cap) in {
         "main": (q, im_w, cfg.B),
-        "plan(planes=2,cap=4)": aligner._plan_columns_bank_major(
-            q, im_cuda, 4, 2, cfg) + (4,),
+        "plan(planes=2,cap=4)": plan_cols(q, 4, 2) + (4,),
+        "plan(8,1): W=64, cap=8": plan_cols(q, 8, 1) + (8,),
+        "plan(1,1): W=8, cap=1": plan_cols(q, 1, 1) + (1,),
         "ragged(N=37,M=1000)": (words(37, W), im_w[:1000], cfg.B),
     }.items():
         qq, hh = qq.contiguous(), hh.contiguous()
@@ -220,9 +255,10 @@ def phase_kernels(cfg, im_cuda):
         bound(4 * (N * W + M * W + N * M * cfg.B), rates.popc_s(N * M * W)))
 
     # fused_scores: one window's proposals against the item memory at the
-    # switch path's widest plan (b = 8 banks) and a reduced one (b = 2),
-    # a ragged shape, and an item memory of duplicated rows (every row's
-    # maximum tied: the first copy must win and top2[1] == top2[0])
+    # switch path's widest plan (b = 8 banks), reduced ones (b = 2; the
+    # ladder's (4, 1) and (1, 1), 32 and 8 words), a ragged shape, and an
+    # item memory of duplicated rows (every row's maximum tied: the first
+    # copy must win and top2[1] == top2[0])
     Nw = cfg.N_max
     qw = words(Nw, W)
     dup = torch.cat([im_w[:M // 2], im_w[:M // 2]]).contiguous()
@@ -230,6 +266,8 @@ def phase_kernels(cfg, im_cuda):
         "main(b=8)": (qw, im_w),
         "reduced(b=2)": (qw[:, :2 * cfg.bank_words].contiguous(),
                          im_w[:, :2 * cfg.bank_words].contiguous()),
+        "plan(4,1): W=32": plan_cols(qw, 4, 1),
+        "plan(1,1): W=8": plan_cols(qw, 1, 1),
         "ragged(N=37,M=1000,W=96)": (words(37, 96),
                                      im_w[:1000, :96].contiguous()),
         "tied(duplicated rows)": (qw, dup),
@@ -291,12 +329,18 @@ def phase_kernels(cfg, im_cuda):
 
     # packed_hamming_batched: the batched decide pass's two tables per
     # step, proposals vs cache snapshot [16, 128] x [16, 8] and proposals
-    # vs proposals [16, 128] x [16, 128], and a ragged shape
+    # vs proposals [16, 128] x [16, 128], both also pre-masked by the
+    # ladder's (1, 1) plan (ops.masked_hamming_all zeroes disabled words),
+    # and a ragged shape
     qb = words(S, cfg.N_max, W)
     eb = words(S, cfg.K, W)
+    wm = item_memory.plan_word_mask(cfg, 1, 1, dev)
+    qm, em = torch.where(wm, qb, 0), torch.where(wm, eb, 0)
     for label, (qq, hh) in {
         f"snapshot([{S},{cfg.N_max}]x[{S},{cfg.K}])": (qb, eb),
         f"proposals([{S},{cfg.N_max}]x[{S},{cfg.N_max}])": (qb, qb),
+        "snapshot, plan(1,1) mask": (qm, em),
+        "proposals, plan(1,1) mask": (qm, qm),
         "ragged([3,37]x[3,5],W=40)": (words(3, 37, 40), words(3, 5, 40)),
     }.items():
         err = _check("packed_hamming_batched", label,
@@ -345,6 +389,48 @@ def phase_kernels(cfg, im_cuda):
         cuda_ms(lambda: ref.sign_project_pack_ref(z, R)),
         bound(4 * (N * d + D * d + N * D // 32), 2 * N * D * d / PEAK_FP32_S),
         library_ms=cuda_ms(lambda: torch.matmul(z, R.T)))
+
+    # sign_project: int8 codes at the encode shape (N = S x N_max), at its
+    # benchmark caller's shape (N = 8), at a ragged shape, and with an
+    # all-zero feature row (every code +1); held to the plain version by
+    # the agreement rule, timed at both main shapes
+    zr = torch.randn((37, d), generator=gen).to(dev)
+    zr[5] = 0.0
+    Rr = R[:8160].contiguous()
+    for label, (zz, RR) in {
+        f"encode(N={N})": (z, R), "caller(N=8)": (z[:8].contiguous(), R),
+        "ragged(N=37,D=8160), zero row 5": (zr, Rr),
+    }.items():
+        got = sp.sign_project(zz, RR)
+        want = ref.sign_project_ref(zz, RR)
+        torch.cuda.synchronize()
+        rule = ref.sign_disagreement(zz, RR, got, want)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        log(f"[kernel] sign_project {label}: codes {rule['bits']} "
+            f"decided_differ {rule['decided_differ']} undecided_differ "
+            f"{rule['undecided_differ']} max_abs_err {err}")
+        if not rule["ok"] or got.dtype != torch.int8 or \
+                got.shape != want.shape:
+            raise AssertionError(f"sign_project {label} breaks the "
+                                 f"agreement rule {rule}")
+        if label.startswith("ragged") and not bool((got[5] == 1).all()):
+            raise AssertionError("sign_project: a zero row must code +1")
+        if label.startswith("encode"):
+            main_err = err
+    for n_rows in (8, N):
+        zz = z[:n_rows].contiguous()
+        entry = _entry(
+            f"sign_project(N={n_rows})",
+            "src/repro_torch/kernels/csrc/sign_project.cu",
+            "src/repro/kernels/sign_project.py:30", main_err,
+            cuda_ms(lambda: sp.sign_project(zz, R)),
+            cuda_ms(lambda: ref.sign_project_ref(zz, R)),
+            # z and R read once, the int8 codes written once; an FMA is two
+            # operations at the FP32 rate
+            bound(4 * (n_rows * d + D * d) + n_rows * D,
+                  2 * n_rows * D * d / PEAK_FP32_S),
+            library_ms=cuda_ms(lambda: torch.matmul(zz, R.T)))
+    report["sign_project"] = dict(entry, name="sign_project")
     return report
 
 
@@ -442,16 +528,18 @@ def _assert_caches_equal(label, cache, ref_cache):
             raise AssertionError(f"{label} final cache.{f.name} differs")
 
 
-def _equal_to_cpu(cfg, sys_, frames, res, states, words, label, n):
+def _equal_to_cpu(cfg, sys_, frames, res, states, words, label, n,
+                  plan=None):
     """The same engine on the CPU (plain versions), fed the card's packed
-    words (the same backlog), must give bit-equal outputs, telemetry and
-    caches over its first ``n`` steps."""
+    words (the same backlog) under the same latched ``plan``, must give
+    bit-equal outputs, telemetry and caches over its first ``n`` steps."""
     from repro_torch.perf.profile_step import submit_step
     from repro_torch.serving.stream_engine import StreamEngine
 
     t0 = time.perf_counter()
     S = len(frames)
     cpu = StreamEngine(cfg, sys_.im, n_slots=S, device="cpu")
+    cpu.set_plan(plan)
     for s in range(S):
         cpu.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
     for t, w in enumerate(words):
@@ -573,6 +661,316 @@ def phase_evaluate(cfg, world, sys_):
         f"per-frame scores and telemetry bit-equal to the card's")
 
 
+def phase_sign_project(sys_, frames, report):
+    """The int8 encode entry point ``ops.sign_project`` on the first step's
+    proposal features of every stream (S x N_max rows) and at its
+    benchmark caller's shape (8 rows), with its launches counted; held to
+    the plain version by the agreement rule. No serving path runs it."""
+    from repro_torch.kernels import build, ops, ref
+
+    R = torch.as_tensor(sys_.R).cuda()
+    feats = np.stack([fr[0].feats for fr in frames])
+    feats = feats.reshape(-1, feats.shape[-1])
+    build.reset_launches()
+    codes = [ops.sign_project(x, R) for x in (feats, feats[:8])]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    _require_launched("sign_project entry", launches, ("sign_project",))
+    report["sign_project"]["launches"] = launches["sign_project"]
+    for x, c in zip((feats, feats[:8]), codes):
+        z = torch.from_numpy(np.array(x, np.float32)).cuda()
+        rule = ref.sign_disagreement(z, R, c, ref.sign_project_ref(z, R))
+        log(f"[sign_project entry] ops.sign_project {tuple(c.shape)} int8: "
+            f"decided_differ {rule['decided_differ']} undecided_differ "
+            f"{rule['undecided_differ']}")
+        if not rule["ok"]:
+            raise AssertionError(f"ops.sign_project breaks the agreement "
+                                 f"rule {rule}")
+    log(f"[sign_project entry] launches {launches}")
+
+
+def _device_busy_ms(fn) -> float:
+    """Run ``fn`` (work that ends in a synchronize) under torch.profiler,
+    device activity only, and return the summed duration of its device
+    events in ms. The raw kineto events are summed as they come: building
+    the profiler's Python event tree (``key_averages``, which gives the same
+    total) costs seconds for a step of 31k launches."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy
+
+
+def _timed_steps(n, one, profile):
+    """Run ``one(t)`` for t < n, timing each on the host clock (``one``
+    ends in a synchronize); with ``profile`` the last run is under
+    torch.profiler instead and gives only the device busy ms."""
+    step_ms, busy = [], None
+    for t in range(n):
+        if profile and t == n - 1:
+            busy = _device_busy_ms(lambda: one(t))
+        else:
+            t0 = time.perf_counter()
+            one(t)
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    return step_ms, busy
+
+
+def _serve_words(cfg, sys_, frames, words, plan, profile, **engine_kw):
+    """Serve pre-encoded ``words`` (one [S x N_max, W] tensor per window,
+    all submitted first) through an engine on the card with ``plan``
+    latched, launches counted from zero. Returns its results, the state
+    after each step, the launches, the host ms of each timed step and the
+    device busy ms of the profiled one (see :func:`_timed_steps`)."""
+    from repro_torch.kernels import build
+    from repro_torch.perf.profile_step import submit_step
+    from repro_torch.serving.stream_engine import StreamEngine
+
+    S = len(frames)
+    eng = StreamEngine(cfg, sys_.im, n_slots=S, **engine_kw)
+    eng.set_plan(plan)
+    eng.warmup()
+    for s in range(S):
+        eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
+    for t, w in enumerate(words):
+        submit_step(eng, frames, t, w)
+    res = {f"cam{s}": [] for s in range(S)}
+    states = []
+
+    def one(_t):
+        for sid, r in eng.step().items():
+            res[sid].append(r)
+        eng.sync()
+        states.append(eng.state)
+
+    build.reset_launches()
+    step_ms, busy = _timed_steps(len(words), one, profile)
+    return res, states, dict(build.LAUNCHES), step_ms, busy
+
+
+def _switch_stream(cfg, sys_, frames, words, plan, profile):
+    """Stream 0 of ``words`` through ``torr_window_step(fused="switch",
+    plan=plan)`` on the card, with the queue depth the engine gives it
+    (its backlog after the pop); launches counted from zero."""
+    from repro_torch.core import pipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    im = sys_.im.to(resolve_device())
+    T, n = len(words), cfg.N_max
+    st = pipeline.init_state(cfg, sys_.task_w[0])
+    res = []
+
+    def one(t):
+        nonlocal st
+        fr = frames[0][t]
+        st, out, tel = pipeline.torr_window_step(
+            st, im, words[t][:n], fr.valid, fr.boxes, T - 1 - t, cfg,
+            plan=plan, fused="switch")
+        res.append((out, tel))
+        torch.cuda.synchronize()
+
+    build.reset_launches()
+    step_ms, busy = _timed_steps(T, one, profile)
+    return st, res, dict(build.LAUNCHES), step_ms, busy
+
+
+def _check_plan_windows(label, res, plan, encoding):
+    """Every window ran the plan's planes within its bank cap, with
+    finite scores, and records the lowering ``encoding``."""
+    for sid, wins in res.items():
+        for t, (out, tel) in enumerate(wins):
+            got = tuple(int(getattr(tel, f)) for f in LOWERING_FIELDS)
+            if int(tel.planes) != plan.planes or \
+                    int(tel.banks) > plan.banks or got != encoding or \
+                    not bool(torch.isfinite(out.scores).all()):
+                raise AssertionError(
+                    f"{label} {sid} window {t}: planes {int(tel.planes)}, "
+                    f"banks {int(tel.banks)}, lowering {got}")
+
+
+# the plan ladder's engines: name, engine knobs, the kernels each must
+# launch, and its (fused_mode, decide_mode) telemetry encoding
+PLAN_LOWERINGS = (
+    ("prefix", {}, ("bank_prefix_hamming",), (FUSED_PREFIX, DECIDE_NONE)),
+    ("compact", dict(fused="compact"),
+     ("packed_hamming_batched", "bank_prefix_hamming"),
+     (FUSED_COMPACT, DECIDE_BATCHED)))
+
+
+def phase_plans(cfg, sys_, served, reuse):
+    """Every level of the edge ladder on the prefix, compact and switch
+    lowerings, both traffics, each step timed (see the module docstring,
+    phase 8). Returns one row per (traffic, level, lowering)."""
+    from repro_torch.control import build_ladder
+    from repro_torch.core.types import map_tensors
+    from repro_torch.perf.profile_step import encode_step
+
+    ladder = build_ladder(cfg)
+    R = torch.as_tensor(sys_.R).cuda()
+    S = len(served)
+    rows = []
+    T = PLAN_WINDOWS
+    for traffic, frames in (("served", served), ("reuse", reuse)):
+        frames = [fr[:T] for fr in frames]
+        words = [encode_step(frames, t, R) for t in range(T)]
+        for level, plan in enumerate(ladder):
+            tag = f"plan {level} ({plan.banks},{plan.planes}) {traffic}"
+            runs = {}
+            for low, kw, kernels, enc in PLAN_LOWERINGS:
+                tier = S * cfg.N_max if low == "compact" else 0
+                res, states, launches, ms, _busy = _serve_words(
+                    cfg, sys_, frames, words, plan, False, **kw)
+                _require_launched(f"{tag} {low}", launches, kernels)
+                _check_plan_windows(f"{tag} {low}", res, plan, enc + (tier,))
+                runs[low] = (res, states, ms, S)
+            base_res, base_states = runs["prefix"][:2]
+            res, states = runs["compact"][:2]
+            _assert_results_equal(f"{tag} compact", res, base_res,
+                                  skip=LOWERING_FIELDS)
+            _assert_caches_equal(f"{tag} compact", states[-1].cache,
+                                 base_states[-1].cache)
+            st, res_sw, launches, ms, _busy = _switch_stream(
+                cfg, sys_, frames, words, plan, False)
+            _require_launched(f"{tag} switch", launches,
+                              ("fused_scores", "delta_update"))
+            _check_plan_windows(f"{tag} switch", {"cam0": res_sw}, plan,
+                                (FUSED_SWITCH, DECIDE_NONE, 0))
+            _assert_results_equal(f"{tag} switch", {"cam0": res_sw},
+                                  base_res, skip=LOWERING_FIELDS)
+            _assert_caches_equal(f"{tag} switch", st.cache, map_tensors(
+                lambda x: x[0], base_states[-1].cache))
+            runs["switch"] = (res_sw, None, ms, 1)
+            for low, (_r, _s, ms, wins) in runs.items():
+                row = dict(traffic=traffic, level=level, banks=plan.banks,
+                           planes=plan.planes, lowering=low, ms_per_step=ms,
+                           windows_per_s=1e3 * wins / statistics.median(ms),
+                           device_busy_ms=None, idle_share=None)
+                rows.append(row)
+                log(f"[{tag} {low}] {wins} windows/step: ms/step "
+                    f"{[round(x, 2) for x in ms]} = "
+                    f"{row['windows_per_s']:.1f} windows/s")
+            log(f"[{tag}] compact and switch == card prefix engine in every "
+                f"field; path mix after the first window "
+                f"{_path_mix(frames, base_res)}")
+            if traffic == "reuse" and \
+                    (plan.banks, plan.planes) in PLAN_CPU_LEVELS:
+                _equal_to_cpu(cfg, sys_, frames, base_res, base_states,
+                              words, tag, T, plan=plan)
+    return rows
+
+
+def phase_plan_idle(cfg, sys_, served, rows):
+    """The device-idle share of every (level, lowering) on the served
+    traffic: the same two windows again on a fresh engine, the second
+    under torch.profiler, its device busy time against the second
+    window's host time in :func:`phase_plans`. It runs after every timed
+    phase, since a profiled step slows the untraced steps after it."""
+    from repro_torch.control import build_ladder
+    from repro_torch.perf.profile_step import encode_step
+
+    R = torch.as_tensor(sys_.R).cuda()
+    frames = [fr[:PLAN_WINDOWS] for fr in served]
+    words = [encode_step(frames, t, R) for t in range(PLAN_WINDOWS)]
+    row_of = {(r["level"], r["lowering"]): r for r in rows
+              if r["traffic"] == "served"}
+    for level, plan in enumerate(build_ladder(cfg)):
+        busy = {low: _serve_words(cfg, sys_, frames, words, plan, True,
+                                  **kw)[-1]
+                for low, kw, _k, _e in PLAN_LOWERINGS}
+        busy["switch"] = _switch_stream(cfg, sys_, frames, words, plan,
+                                        True)[-1]
+        for low, b in busy.items():
+            row = row_of[(level, low)]
+            row["device_busy_ms"] = b
+            row["idle_share"] = 1.0 - b / row["ms_per_step"][-1]
+        log(f"[plan {level} ({plan.banks},{plan.planes}) served idle] "
+            + "; ".join(f"{low}: device busy {b:.2f} ms of "
+                        f"{row_of[(level, low)]['ms_per_step'][-1]:.2f} ms, "
+                        f"idle {row_of[(level, low)]['idle_share']:.4f}"
+                        for low, b in busy.items()))
+
+
+def phase_governed(cfg, sys_, frames):
+    """The compact engine under the QoS governor at RT-60 (phase 9): each
+    step the tightest window's slack, the tracker's step EMA and the
+    backlog pick the plan; each served window's modeled energy feeds the
+    governor back. Then the plan log replayed on a fresh prefix engine."""
+    from repro_torch.configs.torr_edge import rt_budget_s
+    from repro_torch.control import Governor, build_ladder, policy_for
+    from repro_torch.kernels import build
+    from repro_torch.perf.cycle_model import telemetry_cost
+    from repro_torch.perf.profile_step import encode_step, submit_step
+    from repro_torch.serving import deadline
+    from repro_torch.serving.stream_engine import StreamEngine
+
+    S, T = len(frames), len(frames[0])
+    budget = rt_budget_s(GOVERNED_RT)
+    R = torch.as_tensor(sys_.R).cuda()
+    words = [encode_step(frames, t, R) for t in range(T)]
+    tracker = deadline.DeadlineTracker(deadline.policy_for(GOVERNED_RT))
+    gov = Governor(cfg, policy_for(GOVERNED_RT))
+
+    def engine(**kw):
+        eng = StreamEngine(cfg, sys_.im, n_slots=S, **kw)
+        eng.warmup()
+        for s in range(S):
+            eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
+        for t, w in enumerate(words):
+            submit_step(eng, frames, t, w)
+        return eng
+
+    eng = engine(fused="compact")
+    # window t of every stream left the camera at frame time t
+    t0 = tracker.now()
+    arrival = [t0 + t * budget for t in range(T)]
+    res = {f"cam{s}": [] for s in range(S)}
+    step_ms = []
+    build.reset_launches()
+    for t in range(T):
+        slack = budget - (tracker.now() - arrival[t])
+        eng.set_plan(gov.update(slack, tracker.step_ema_s,
+                                backlog=T - 1 - t, n_windows=S))
+        t1 = time.perf_counter()
+        out = eng.step()
+        eng.sync()
+        dur = time.perf_counter() - t1
+        tracker.observe_step(dur)
+        step_ms.append(1e3 * dur)
+        for sid, (o, tel) in out.items():
+            res[sid].append((o, tel))
+            gov.observe_energy(1e3 * telemetry_cost(
+                tel, cfg, budget, window_scale=60.0 * budget).energy_j)
+            tracker.complete(arrival[t])
+    launches = dict(build.LAUNCHES)
+    _require_launched("governed", launches,
+                      ("packed_hamming_batched", "bank_prefix_hamming"))
+    summ = tracker.summary()
+    log(f"[governed] compact engine, {GOVERNED_RT} ({1e3 * budget:.2f} ms), "
+        f"{S} streams x {T} windows: plan_log {gov.plan_log}; ms/step "
+        f"{[round(x, 2) for x in step_ms]}; governor {gov.summary()}; "
+        f"deadline p99 {summ['p99_ms']:.1f} ms, miss_rate "
+        f"{summ['miss_rate']:.3f}; launches {launches}")
+
+    ladder = build_ladder(cfg)
+    replay = engine()
+    res2 = {sid: [] for sid in res}
+    for _banks, _planes, level in gov.plan_log:
+        replay.set_plan(ladder[level])
+        for sid, r in replay.step().items():
+            res2[sid].append(r)
+    replay.sync()
+    _assert_results_equal("governed replay", res, res2, skip=LOWERING_FIELDS)
+    _assert_caches_equal("governed replay", eng.state.cache,
+                         replay.state.cache)
+    log(f"[governed] plan_log replayed with set_plan on a fresh prefix "
+        f"engine: every window and the final caches bit-equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -586,13 +984,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
+
+    def done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - t_phase:.1f} s")
+        t_phase = now
+
     phase_card()
     phase_build()
+    done("card and build")
     cfg = torr_edge()
     world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim, n_tasks=5)
     sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
     report = phase_kernels(cfg, sys_.im.to("cuda"))
+    done("kernels")
 
     served = edge_windows(world, cfg, STREAMS, WINDOWS, cfg.N_max)
     reuse = edge_windows(world, cfg, STREAMS, REUSE_WINDOWS, cfg.K)
@@ -604,6 +1011,7 @@ def main() -> int:
     if mix["bypass"] <= 0 or mix["delta"] <= 0:
         raise AssertionError("reuse traffic: no bypass or no delta after "
                              "the first windows")
+    done("serving (prefix, with its two CPU references)")
 
     switch = (FUSED_SWITCH, DECIDE_NONE, 0)
     compact = (FUSED_COMPACT, DECIDE_BATCHED, None)
@@ -624,11 +1032,21 @@ def main() -> int:
                                           for e in seen):
             raise AssertionError("auto never reached the compact lowering "
                                  "on the reuse traffic")
+    done("lowerings (serial switch, compact, auto)")
     phase_evaluate(cfg, world, sys_)
+    done("evaluate")
+    phase_sign_project(sys_, served, report)
+    rows = phase_plans(cfg, sys_, served, reuse)
+    done("plan ladder")
+    phase_governed(cfg, sys_, reuse)
+    done("governed")
+    phase_plan_idle(cfg, sys_, served, rows)
+    done("plan ladder idle share")
     missing = [n for n, r in report.items() if "launches" not in r]
     if missing:
         raise AssertionError(f"never launched on a path: {missing}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"plan_ladder": rows}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

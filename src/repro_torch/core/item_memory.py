@@ -66,6 +66,12 @@ def plane_sel(limit_words: int, planes: int, plane_total: int) -> np.ndarray:
     return sel.astype(np.int64)
 
 
+def plan_word_sel(cfg: TorrConfig, banks: int, planes: int) -> np.ndarray:
+    """Enabled-word indices for a (banks, planes) plan, plane-major: the
+    column order of the host-latched wrappers in ``kernels.ops``."""
+    return plane_sel(banks * cfg.bank_words, planes, cfg.bit_planes)
+
+
 def bank_plane_sel(cfg: TorrConfig, banks: int, planes: int) -> np.ndarray:
     """Enabled-word indices for a (banks, planes) plan in *bank-major* order
     (bank 0's enabled words first, plane-major inside each bank): the column
@@ -148,3 +154,15 @@ def dim_mask(cfg: TorrConfig, banks, device=None) -> torch.Tensor:
     d_eff = banks * cfg.bank_dims
     ar = torch.arange(cfg.D, dtype=torch.int64, device=device)
     return ar < d_eff[..., None]
+
+
+def plan_dim_mask(cfg: TorrConfig, banks, planes: int,
+                  device=None) -> torch.Tensor:
+    """Boolean mask [..., D] of dimensions enabled by a (banks, planes)
+    plan: the oracle-side statement of the plan (tests mask bipolar dims
+    with it)."""
+    dm = dim_mask(cfg, banks, device)
+    if planes >= cfg.bit_planes:
+        return dm
+    word_of = torch.arange(cfg.D, device=dm.device) // 32
+    return torch.logical_and(dm, (word_of % cfg.bit_planes) < planes)

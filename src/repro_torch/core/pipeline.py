@@ -43,6 +43,7 @@ import warnings
 
 import torch
 
+from ..device import resolve_device
 from . import aligner as al
 from . import policy, query_cache, reasoner
 from .item_memory import ItemMemory, plan_word_mask
@@ -63,16 +64,22 @@ class TorrState:
     task_weights: torch.Tensor  # f32 [M] precomputed w_j for the active task
 
 
-def init_state(cfg: TorrConfig, task_w, device="cpu") -> TorrState:
-    task_w = torch.as_tensor(task_w).to(device=device, dtype=torch.float32)
+def init_state(cfg: TorrConfig, task_w, device=None) -> TorrState:
+    """One stream's state on ``device`` (the card unless the caller asks
+    for the CPU)."""
+    task_w = torch.as_tensor(task_w).to(device=resolve_device(device),
+                                        dtype=torch.float32)
     return TorrState(cache=query_cache.init_cache(cfg, task_w.device),
                      task_weights=task_w)
 
 
-def init_multi_stream_state(cfg: TorrConfig, task_w, device="cpu") -> TorrState:
-    """Stacked state for S independent streams: ``task_w`` f32 [S, M], one
+def init_multi_stream_state(cfg: TorrConfig, task_w,
+                            device=None) -> TorrState:
+    """Stacked state for S independent streams on ``device`` (the card
+    unless the caller asks for the CPU): ``task_w`` f32 [S, M], one
     reasoner-weight row per stream slot; every cache leaf gains [S]."""
-    task_w = torch.as_tensor(task_w).to(device=device, dtype=torch.float32)
+    task_w = torch.as_tensor(task_w).to(device=resolve_device(device),
+                                        dtype=torch.float32)
     return TorrState(
         cache=query_cache.init_cache_batch(cfg, task_w.shape[0],
                                            task_w.device),
@@ -87,13 +94,6 @@ class WindowOutput:
     boxes: torch.Tensor   # f32 [N_max, 4] passthrough proposal boxes
 
 
-def _check_plan(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError(
-            "a latched KnobPlan comes with the control-plane part of the "
-            "port (ROADMAP Queue 1 item 7); pass plan=None")
-
-
 def _resolve_decide(decide) -> str:
     """The compact dispatch's decide-pass lowering: the batched decide by
     default, ``"scan"`` pinning the sequential reference."""
@@ -104,22 +104,35 @@ def _resolve_decide(decide) -> str:
     return decide
 
 
-def _resolve_bucket_cap(bucket_cap, n_rows: int) -> int:
-    """The compact dispatch's bucket capacity: ``bucket_cap`` if given,
-    else full capacity (no overflow possible, no savings either). A
-    capacity above the dispatch's rows is clamped, with a warning: a ladder
-    sized for another batch shape should not pass for a deliberate
-    full-capacity choice."""
-    if bucket_cap is None:
+def _plan_static(plan, cfg: TorrConfig):
+    """Resolve the latched plan to its host knobs: (planes, cap, cfg'), with
+    cfg' carrying the plan's tau offsets."""
+    if plan is None:
+        return cfg.bit_planes, cfg.B, cfg
+    plan.validate(cfg)
+    return plan.planes, min(plan.banks, cfg.B), plan.thresholds(cfg)
+
+
+def _resolve_bucket_cap(bucket_cap, plan, n_rows: int) -> int:
+    """The compact dispatch's bucket capacity. Precedence: the explicit
+    ``bucket_cap`` argument, else the latched plan's ``bucket_cap``, else
+    full capacity (no overflow possible, no savings either). A capacity
+    above the dispatch's rows is clamped, with a warning: a ladder sized
+    for another batch shape should not pass for a deliberate full-capacity
+    choice."""
+    cap, src = bucket_cap, "bucket_cap"
+    if cap is None and plan is not None:
+        cap, src = plan.bucket_cap, "plan.bucket_cap"
+    if cap is None:
         return n_rows
-    cap = int(bucket_cap)
+    cap = int(cap)
     if cap < 1:
         raise ValueError(f"bucket_cap={cap} must be >= 1")
     if cap > n_rows:
         warnings.warn(
-            f"bucket_cap={cap} exceeds the dispatch's {n_rows} rows; "
-            f"clamping to full capacity (the no-savings tier). The latched "
-            f"ladder was likely sized for a different batch shape.",
+            f"{src}={cap} exceeds the dispatch's {n_rows} rows; clamping to "
+            f"full capacity (the no-savings tier). The latched ladder was "
+            f"likely sized for a different batch shape.",
             stacklevel=3)
         cap = n_rows
     return cap
@@ -504,15 +517,18 @@ def _as_batch(q_packed_all, valid, boxes, queue_depth, device):
             torch.as_tensor(queue_depth, device=device).to(torch.int32))
 
 
-def _load_gates(valid, queue_depth, cfg: TorrConfig):
-    """(n_valid, high, banks), each [S]: Alg. 1's per-stream load gating."""
+def _load_gates(valid, queue_depth, cfg: TorrConfig, plan):
+    """(n_valid, high, banks), each [S]: Alg. 1's per-stream load gating,
+    the bank choice capped by the latched plan where its cap binds."""
     n_valid = torch.sum(valid, dim=-1, dtype=torch.int32)
-    return (n_valid, policy.high_load(n_valid, queue_depth, cfg),
-            policy.select_banks(n_valid, queue_depth, cfg))
+    banks = policy.select_banks(n_valid, queue_depth, cfg)
+    if plan is not None and plan.banks < cfg.B:
+        banks = torch.clamp(banks, max=plan.banks)
+    return n_valid, policy.high_load(n_valid, queue_depth, cfg), banks
 
 
 def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
-                               qd, cfg: TorrConfig, *, serial: bool,
+                               qd, cfg: TorrConfig, *, serial: bool, plan,
                                bucket_cap, decide):
     """The compact-then-compute lowering (``fused="compact"``):
 
@@ -524,11 +540,14 @@ def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
       3. apply: the batched apply when the decide pass was batched, else
          (or when ``serial``) the per-proposal loop replays the decisions,
          gathering full-path accumulators from the bucket and applying
-         Eq. 6 through the ``delta_update`` kernel."""
-    planes, cap = cfg.bit_planes, cfg.B
+         Eq. 6 through the ``delta_update`` kernel.
+
+    The latched ``plan`` sets the planes and bank cap of every pass and the
+    tau offsets of the decide pass."""
+    planes, cap, cfg = _plan_static(plan, cfg)
     S, N, W = q.shape
-    bcap = _resolve_bucket_cap(bucket_cap, S * N)
-    n_valid, high, banks = _load_gates(v, qd, cfg)
+    bcap = _resolve_bucket_cap(bucket_cap, plan, S * N)
+    n_valid, high, banks = _load_gates(v, qd, cfg, plan)
     decide_mode = _resolve_decide(decide)
     aux = None
     if decide_mode == "batched":
@@ -579,10 +598,16 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
     ``"prefix"`` for the batched step (the bank-prefix kernel hoisted over
     the flattened S x N_max batch), ``"switch"`` for ``serial=True`` (a
     loop over the slots of the single-window step). ``"compact"`` takes
-    ``bucket_cap`` (None = full capacity) and ``decide`` (None =
-    ``"batched"``); the other lowerings ignore both, as ``repro`` does.
-    The state passed in is not modified."""
-    _check_plan(plan)
+    ``bucket_cap`` (None = the plan's ``bucket_cap``, else full capacity)
+    and ``decide`` (None = ``"batched"``); the other lowerings ignore both,
+    as ``repro`` does.
+
+    ``plan`` is a :class:`~repro_torch.control.plan.KnobPlan` latched for
+    the whole step (None = uncontrolled): it caps Alg. 1's bank choice
+    (``min``; the full cap is a bit-exact no-op), selects the bit-slice
+    planes every scan reads, and offsets the tau thresholds; each window's
+    telemetry records the ``banks`` and ``planes`` it ran with. The state
+    passed in is not modified."""
     if fused is None:
         fused = "switch" if serial else "prefix"
     if fused not in _FUSED_MODES:
@@ -591,18 +616,19 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
                             im.device)
     if fused == "compact":
         return _multi_stream_compact_step(state, im, q, v, b, qd, cfg,
-                                          serial=serial,
+                                          serial=serial, plan=plan,
                                           bucket_cap=bucket_cap,
                                           decide=decide)
     if serial:
-        steps = [torr_window_step(
-            TorrState(cache=map_tensors(lambda x: x[s], state.cache),
-                      task_weights=state.task_weights[s]),
-            im, q[s], v[s], b[s], qd[s], cfg, fused=fused)
-            for s in range(q.shape[0])]
+        steps = []
+        for s in range(q.shape[0]):
+            one = TorrState(cache=map_tensors(lambda x: x[s], state.cache),
+                            task_weights=state.task_weights[s])
+            steps.append(torr_window_step(one, im, q[s], v[s], b[s], qd[s],
+                                          cfg, plan=plan, fused=fused))
         return tuple(_stack(list(x)) for x in zip(*steps))
-    n_valid, high, banks = _load_gates(v, qd, cfg)
-    planes, cap = cfg.bit_planes, cfg.B
+    planes, cap, cfg = _plan_static(plan, cfg)
+    n_valid, high, banks = _load_gates(v, qd, cfg, plan)
     acc_full_all = None
     if fused != "off":
         acc_full_all = al.full_scores_all(q, im, banks, cfg, planes=planes,
@@ -626,7 +652,8 @@ def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
     window's bank choice, Eq. 6 through ``delta_update``), ``"prefix"``,
     ``"compact"`` (with ``bucket_cap`` and ``decide``) or ``"off"`` (the
     per-proposal oracle); all are bit-identical to ``repro``'s every
-    lowering."""
+    lowering, under any latched ``plan`` (see
+    :func:`torr_multi_stream_step`)."""
     if fused is None:
         fused = "switch"
     q, v, b, qd = _as_batch(q_packed_all, valid, boxes, queue_depth,

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
 from . import hdc
 from .item_memory import plan_word_mask
 from .types import TorrConfig, map_tensors
@@ -33,8 +34,11 @@ class CacheState:
     valid: torch.Tensor     # bool  [K]
 
 
-def init_cache(cfg: TorrConfig, device="cpu") -> CacheState:
+def init_cache(cfg: TorrConfig, device=None) -> CacheState:
+    """An empty depth-K cache on ``device`` (the card unless the caller
+    asks for the CPU)."""
     K = cfg.K
+    device = resolve_device(device)
     return CacheState(
         packed=torch.zeros((K, cfg.words), dtype=torch.int32, device=device),
         acc=torch.zeros((K, cfg.M), dtype=torch.int32, device=device),
@@ -50,7 +54,7 @@ def init_cache(cfg: TorrConfig, device="cpu") -> CacheState:
 
 
 def init_cache_batch(cfg: TorrConfig, n_streams: int,
-                     device="cpu") -> CacheState:
+                     device=None) -> CacheState:
     """Stacked per-stream caches: every leaf gains a leading [S] axis."""
     one = init_cache(cfg, device)
     return map_tensors(

@@ -36,6 +36,7 @@ SIGNATURES = {
     "fused_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "delta_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "packed_hamming_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sign_project": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

@@ -20,6 +20,7 @@ import torch
 from ..core.item_memory import plane_sel
 from ..device import resolve_device
 from . import fused_window
+from .sign_project import sign_project as _sign_project
 from .xnor_popcount_sim import TQ_DEFAULT, fit_tile, packed_hamming_batched
 
 
@@ -132,6 +133,19 @@ def encode_packed(z, R, *, device=None) -> torch.Tensor:
     the CUDA kernel on the card, its plain version on the CPU."""
     dev = resolve_device(device)
     return fused_window.sign_project_pack(_f32(z, dev), _f32(R, dev))
+
+
+def sign_project(z, R, *, device=None) -> torch.Tensor:
+    """Fused bipolar projection: int8 codes [N, D] = sign(z @ R.T), sign(0)
+    -> +1.
+
+    ``z`` [N, d] and ``R`` [D, d] (numpy arrays or tensors) move to
+    ``device`` as float32 — the GPU unless the caller asks for the CPU —
+    and go through ``sign_project.sign_project``: the CUDA kernel on the
+    card at any N and D (``repro``'s off-tile oracle fallback has no
+    counterpart here), its plain version on the CPU."""
+    dev = resolve_device(device)
+    return _sign_project(_f32(z, dev), _f32(R, dev))
 
 
 def _f32(x, device) -> torch.Tensor:

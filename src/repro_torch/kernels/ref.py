@@ -103,26 +103,25 @@ def sign_project_pack_ref(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return hdc.pack_bits(sign_project_ref(z, R))
 
 
-def sign_pack_disagreement(z: torch.Tensor, R: torch.Tensor,
-                           words_a: torch.Tensor,
-                           words_b: torch.Tensor) -> dict:
-    """The agreement rule for two encodings of pack(sign(z @ R.T)).
+def sign_disagreement(z: torch.Tensor, R: torch.Tensor,
+                      codes_a: torch.Tensor, codes_b: torch.Tensor) -> dict:
+    """The agreement rule for two computations of sign(z @ R.T) as bipolar
+    codes [N, D] (``sign_project``).
 
     Float32 products summed in different orders may differ in sign where
     |y| is within rounding of zero, so no two implementations are
-    bit-equal. A bit is *decided* where |y| > tau with
+    bit-equal. A code is *decided* where |y| > tau with
     tau = d * 2^-23 * sum_i |z_i * R_{D,i}| (the forward-error bound of a
     length-d float32 dot, taken on this function's float32 product y);
-    decided bits must agree, and the undecided ones that differ must stay
-    at most 1e-4 of all bits. Returns the counts (the caller asserts)."""
+    decided codes must agree, and the undecided ones that differ must stay
+    at most 1e-4 of all codes. Returns the counts (the caller asserts)."""
     z = z.to(torch.float32)
     R = R.to(torch.float32)
     d = z.shape[1]
     y = z @ R.T
     tau = d * 2.0 ** -23 * (z.abs().to(torch.float64)
                             @ R.abs().to(torch.float64).T)
-    D = R.shape[0]
-    diff = hdc.unpack_bits(words_a ^ words_b, D) > 0     # differing bits
+    diff = codes_a != codes_b
     decided = y.abs().to(torch.float64) > tau
     n_bits = diff.numel()
     return {
@@ -132,3 +131,13 @@ def sign_pack_disagreement(z: torch.Tensor, R: torch.Tensor,
         "ok": bool(torch.sum(diff & decided) == 0
                    and torch.sum(diff & ~decided) <= 1e-4 * n_bits),
     }
+
+
+def sign_pack_disagreement(z: torch.Tensor, R: torch.Tensor,
+                           words_a: torch.Tensor,
+                           words_b: torch.Tensor) -> dict:
+    """:func:`sign_disagreement` for two encodings of pack(sign(z @ R.T))
+    (``sign_project_pack``): the rule over the unpacked bits."""
+    D = R.shape[0]
+    return sign_disagreement(z, R, hdc.unpack_bits(words_a, D),
+                             hdc.unpack_bits(words_b, D))

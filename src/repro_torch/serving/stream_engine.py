@@ -19,6 +19,10 @@ Scheduling contract:
   * ``retire(stream_id)`` drops the stream's remaining backlog and frees
     the slot; admission asserts the recycled slot's queue is empty.
 
+``set_plan(plan)`` latches a :class:`~repro_torch.control.plan.KnobPlan`
+(D' cap, bit-slice planes, tau offsets) for every later step, on every
+lowering; ``set_plan(None)`` returns to the uncontrolled step.
+
 ``fused="auto"`` arms the load-aware kernel dispatch: every step the engine
 folds an earlier step's full-path fraction into an EWMA and picks between
 the hoisted lowering default and the reuse-aware compact dispatch
@@ -103,6 +107,7 @@ class StreamEngine:
         self._fused = None if self._auto else fused
         self._bucket_cap = bucket_cap
         self._decide = decide
+        self._plan = None          # the latched KnobPlan (None = uncontrolled)
         # full-path fraction EWMA; starts pessimistic (a cold cache makes
         # every proposal a miss), so auto begins on the hoisted lowering.
         # The backlog holds the (path, n_valid) of dispatched steps; only
@@ -204,6 +209,18 @@ class StreamEngine:
         batch.queue_depth = torch.from_numpy(qd).to(self.device)
         return batch, served
 
+    def set_plan(self, plan) -> None:
+        """Latch a knob plan (``control.plan.KnobPlan`` or None) for the
+        following steps. Host-side only: it takes effect on the next
+        dispatch. A plan built for another config raises here."""
+        if plan is not None:
+            plan.validate(self.cfg)
+        self._plan = plan
+
+    @property
+    def plan(self):
+        return self._plan
+
     # -- load-aware fused="auto" dispatch ------------------------------------
 
     def _observe_path_mix(self, path, n_valid) -> None:
@@ -229,7 +246,9 @@ class StreamEngine:
         pass through. In auto mode the predicted full-path rows (EWMA x
         lanes, padded by ``AUTO_HEADROOM``) round up to a bucket-ladder
         tier: a tier below full capacity dispatches the compact lowering,
-        full capacity the lowering's hoisted default."""
+        full capacity the lowering's hoisted default. The auto tier is an
+        explicit ``bucket_cap``, so it wins over a latched plan's
+        ``bucket_cap``."""
         if not self._auto:
             return self._fused, self._bucket_cap, self._decide
         self.flush_telemetry(keep=1)
@@ -253,7 +272,8 @@ class StreamEngine:
         fused, bucket_cap, decide = self._resolve_fused()
         self._state, out, tel = pipeline.torr_stream_batch_step(
             self._state, self.im, batch, self.cfg, serial=self._serial,
-            fused=fused, bucket_cap=bucket_cap, decide=decide)
+            plan=self._plan, fused=fused, bucket_cap=bucket_cap,
+            decide=decide)
         if self._auto:      # deferred fold: this step's telemetry waits
             self._tel_backlog.append((tel.path, tel.n_valid))
             self.flush_telemetry(keep=1)
@@ -297,6 +317,7 @@ class StreamEngine:
         fused, bucket_cap, decide = self._resolve_fused()
         pipeline.torr_stream_batch_step(self._state, self.im,
                                         self._empty_batch(), self.cfg,
-                                        serial=self._serial, fused=fused,
-                                        bucket_cap=bucket_cap, decide=decide)
+                                        serial=self._serial, plan=self._plan,
+                                        fused=fused, bucket_cap=bucket_cap,
+                                        decide=decide)
         self.sync()

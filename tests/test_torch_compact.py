@@ -201,12 +201,12 @@ def test_resolve_knobs():
     assert pipeline._resolve_decide(None) == "batched"
     assert pipeline._resolve_decide("scan") == "scan"
     resolve = pipeline._resolve_bucket_cap
-    assert resolve(4, 8) == 4
-    assert resolve(None, 8) == 8
+    assert resolve(4, None, 8) == 4
+    assert resolve(None, None, 8) == 8
     with pytest.warns(UserWarning, match="bucket_cap=16 exceeds"):
-        assert resolve(16, 8) == 8
+        assert resolve(16, None, 8) == 8
     with pytest.raises(ValueError):
-        resolve(0, 8)
+        resolve(0, None, 8)
 
 
 # --- decide passes: the decision 7-tuple and aux -----------------------------
@@ -234,7 +234,7 @@ def test_decide_passes_match_jax(planes, mix):
     codes = bipolar(rng, (cfg.M, cfg.D))
     im = item_memory.build_item_memory(torch.from_numpy(codes))
     task_w = rng.uniform(0, 1, (S, cfg.M)).astype(np.float32)
-    state = pipeline.init_multi_stream_state(cfg, task_w)
+    state = pipeline.init_multi_stream_state(cfg, task_w, device="cpu")
     banks = torch.tensor([8, 4], dtype=torch.int32)
     high = torch.tensor([True, False])
     decide = _jax_decide()
@@ -292,7 +292,8 @@ def _run_pair(kw, windows, qd_seq, task_w, lowerings, seed=0):
         if name in ("jax", "off"):
             st = jpipe.init_multi_stream_state(jcfg, jnp.asarray(task_w))
         else:
-            st = pipeline.init_multi_stream_state(tcfg, task_w)
+            st = pipeline.init_multi_stream_state(tcfg, task_w,
+                                                     device="cpu")
         res = []
         for (q, v), qd in zip(windows, qd_seq):
             if name in ("jax", "off"):

@@ -17,6 +17,7 @@ from repro.data import tood_synth as jts
 from repro.serving import tood_pipelines as jtp
 from repro.serving.stream_engine import StreamEngine as JEngine
 from repro_torch import convert
+from repro_torch.control import KnobPlan
 from repro_torch.core import item_memory, pipeline, reasoner
 from repro_torch.core.types import TorrConfig
 from repro_torch.data import tood_synth as ts
@@ -61,7 +62,7 @@ def test_multi_stream_step_matches_jax(S, fused):
     im, jm = _memories()
     task_w = np.random.default_rng(1).uniform(0, 1, (S, TCFG.M)) \
         .astype(np.float32)
-    tstate = pipeline.init_multi_stream_state(TCFG, task_w)
+    tstate = pipeline.init_multi_stream_state(TCFG, task_w, device="cpu")
     jstate = jpipe.init_multi_stream_state(JCFG, jnp.asarray(task_w))
     jstep = jax.jit(jpipe.torr_multi_stream_step, static_argnames="cfg")
     paths = []
@@ -149,14 +150,44 @@ def test_engine_admission_rules():
     eng._pending[0].append(None)
     with pytest.raises(AssertionError, match="leaked"):
         eng.admit("c", w)
-    # a latched KnobPlan is the part of the step still to port
-    with pytest.raises(NotImplementedError):
-        pipeline.torr_multi_stream_step(eng.state, im, None, None, None,
-                                        None, TCFG, plan=object())
-    with pytest.raises(NotImplementedError):
-        pipeline.torr_multi_stream_step(eng.state, im, None, None, None,
-                                        None, TCFG, serial=True,
-                                        plan=object())
+    # a latched KnobPlan must fit the config: the engine's latch and every
+    # lowering of the step validate it, as repro's do
+    foreign = KnobPlan(banks=TCFG.B, planes=2, plane_total=8)
+    too_wide = KnobPlan(banks=TCFG.B + 1, planes=1,
+                        plane_total=TCFG.bit_planes)
+    for plan in (foreign, too_wide):
+        with pytest.raises(ValueError):
+            eng.set_plan(plan)
+        for kw in (dict(), dict(serial=True), dict(fused="compact")):
+            with pytest.raises(ValueError):
+                pipeline.torr_multi_stream_step(
+                    eng.state, im, np.zeros((1, TCFG.N_max, TCFG.words),
+                                            np.int32),
+                    np.ones((1, TCFG.N_max), bool),
+                    np.zeros((1, TCFG.N_max, 4), np.float32),
+                    np.zeros(1, np.int32), TCFG, plan=plan, **kw)
+    assert eng.plan is None
+
+
+def test_state_constructors_default_to_the_card(monkeypatch):
+    """With no device given, every public state constructor builds on the
+    card, and raises where there is none; ``device="cpu"`` asks for the
+    CPU."""
+    from repro_torch.core import query_cache
+
+    w = np.zeros((2, TCFG.M), np.float32)
+    builders = (lambda **kw: pipeline.init_state(TCFG, w[0], **kw),
+                lambda **kw: pipeline.init_multi_stream_state(TCFG, w, **kw),
+                lambda **kw: query_cache.init_cache(TCFG, **kw),
+                lambda **kw: query_cache.init_cache_batch(TCFG, 2, **kw))
+    for build in builders:
+        cpu = build(device="cpu")
+        leaves = cpu.cache if hasattr(cpu, "cache") else cpu
+        assert leaves.packed.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in builders:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_engine_warmup_is_a_state_no_op():

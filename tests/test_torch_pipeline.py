@@ -82,7 +82,7 @@ SCENARIOS = ("cold_delta_bypass", "scene_cut", "exact_delta", "padding",
 @pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
 def test_window_step_matches_jax(cfg_name, scenario, fused):
     tcfg, jcfg, im, jm, task_w, qs, rng = _setup(CONFIGS[cfg_name])
-    tstate = pipeline.init_state(tcfg, task_w)
+    tstate = pipeline.init_state(tcfg, task_w, device="cpu")
     jstate = jpipe.init_state(jcfg, jnp.asarray(task_w))
     jstep = _jax_step(fused)
     paths = []

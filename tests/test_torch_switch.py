@@ -188,7 +188,7 @@ def test_switch_window_step_matches_jax(cfg_name, scenario):
     scenarios of tests/test_pipeline.py: every output, every telemetry
     field (fused_mode = switch) and the cache, window by window."""
     tcfg, jcfg, im, jm, task_w, qs, rng = _setup(CONFIGS[cfg_name])
-    tstate = pipeline.init_state(tcfg, task_w)
+    tstate = pipeline.init_state(tcfg, task_w, device="cpu")
     jstate = jpipe.init_state(jcfg, jnp.asarray(task_w))
     jstep = _jax_step(None)
     for t, (q_bip, qd, valid) in enumerate(_scenario(scenario, tcfg, qs,
@@ -225,7 +225,7 @@ sequential's fixtures)."""
     im, jm = _memories()
     task_w = np.random.default_rng(1).uniform(0, 1, (S, TCFG.M)) \
         .astype(np.float32)
-    tstate = pipeline.init_multi_stream_state(TCFG, task_w)
+    tstate = pipeline.init_multi_stream_state(TCFG, task_w, device="cpu")
     jstate = jpipe.init_multi_stream_state(JCFG, jnp.asarray(task_w))
     jstep = _jax_mstep(serial, fused)
     for t, (q, valid, boxes, qd) in enumerate(_make_inputs(TCFG, S, T=3)):
@@ -256,7 +256,7 @@ def test_switch_groups_heterogeneous_banks():
     valid = np.repeat((np.arange(tcfg.N_max) < 6)[None], S, 0)
     boxes = np.zeros((S, tcfg.N_max, 4), np.float32)
     qd = np.array([0, 2, 8, 30], np.int32)
-    tstate = pipeline.init_multi_stream_state(tcfg, task_w)
+    tstate = pipeline.init_multi_stream_state(tcfg, task_w, device="cpu")
     jstate = jpipe.init_multi_stream_state(jcfg, jnp.asarray(task_w))
     jstep = _jax_mstep(False, "switch")
     for t in range(3):
