@@ -10,10 +10,15 @@ printing its result line):
      (one ``nvcc`` per source, all at once);
   2. every kernel against its plain PyTorch version on the card, at the
      serving paths' shapes and at reduced, ragged and tied ones (bit-equal;
-     ``sign_project_pack`` under its agreement rule), timed with CUDA events
-     (median of 20 after warm-up) beside the plain version, a PyTorch
-     library call where one exists, and the least time the card could take
-     (``bound_ms``);
+     the two encodes under their agreement rule with no decided code
+     differing, at 8, N_max and S x N_max rows and at a ragged shape whose
+     all-zero and NaN rows must equal the plain version exactly), timed
+     with CUDA events (median of 20 after warm-up) beside the plain
+     version, a PyTorch library call where one exists, and the least time
+     the card could take (``bound_ms``); the encodes, and their library
+     call torch.matmul(z, R.T), also as device time per call from a CUDA
+     graph of 20 calls (their ``ms``), with a 3xTF32 and an FP32 bound at
+     each of the three row counts;
   3. serving at the edge config (``torr_edge()``) on the multi-stream
      step's default (prefix) lowering: 16 streams in 16 slots, 4 windows
      each of the traffic ``launch/serve.py`` serves (``simulate_sequence``
@@ -33,7 +38,9 @@ printing its result line):
      reuse traffic auto must reach the compact lowering;
   6. ``evaluate_task`` for the five TOOD tasks at the edge config on the
      card (AP@0.5 of TorR, dense and naive HDC, and TorR's path mix), one
-     task's per-frame scores equal to the same run on the CPU;
+     task's per-frame scores and telemetry equal to the same run on the CPU
+     fed the card's packed queries, which are held to the CPU's encode by
+     the agreement rule;
   7. the int8 encode entry point ``ops.sign_project`` (the
      ``sign_project`` kernel) on one step's proposal features and at its
      benchmark caller's shape, held to the plain version by the agreement
@@ -75,10 +82,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and FP32 FLOP/s
-# outside the tensor cores (an FMA is 2 operations)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, FP32 FLOP/s
+# outside the tensor cores (an FMA is 2 operations) and TF32 FLOP/s on them
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12        # dense, on the tensor cores
 # Integer issue rates of compute capability 9.0, per SM per clock (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions): 64
 # 32-bit integer adds, multiply-adds or bitwise ops, 16 population counts
@@ -118,6 +126,35 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls=20, reps=10) -> float:
+    """Device time of one call of ``fn`` in ms: ``calls`` calls captured
+    back to back in one CUDA graph, the graph replayed ``reps`` times
+    between CUDA events (median), so the host's time between the calls
+    (wrapper, launch) is not counted. Inputs stay in L2 between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -202,11 +239,10 @@ def _check(name, label, got, want):
 
 def phase_kernels(cfg, im_cuda):
     """Every kernel vs its plain version on the card, then timed."""
-    from repro_torch.core import aligner, hdc, item_memory
+    from repro_torch.core import aligner, item_memory
     from repro_torch.kernels import delta_update as du
     from repro_torch.kernels import fused_window as fw
     from repro_torch.kernels import ref
-    from repro_torch.kernels import sign_project as sp
     from repro_torch.kernels import xnor_popcount_sim as xps
 
     dev = torch.device("cuda")
@@ -363,74 +399,114 @@ def phase_kernels(cfg, im_cuda):
                    + S * cfg.N_max * (cfg.K + cfg.N_max)),
               rates.popc_s(pairs)))
 
-    # sign_project_pack: one step's worth of proposals (S x N_max rows)
-    d = cfg.feat_dim
+    report.update(_encode_kernels(cfg, gen, dev, N))
+    return report
+
+
+def _encode_bounds(n, d, D, out_bytes):
+    """(3xTF32 bound, FP32-FMA bound) of sign(z @ R.T) for n rows: z and R
+    read once, the codes written once; the 3xTF32 product is three TF32
+    products on the tensor cores, the FP32 one an FMA (2 operations) per
+    term on the CUDA cores."""
+    moved = 4 * (n * d + D * d) + out_bytes
+    return (bound(moved, 3 * 2 * n * D * d / PEAK_TF32_S),
+            bound(moved, 2 * n * D * d / PEAK_FP32_S))
+
+
+def _encode_kernels(cfg, gen, dev, N):
+    """sign_project_pack and sign_project: the agreement rule (no decided
+    code may differ) at every timed shape and at a ragged one whose all-zero
+    and NaN rows must equal the plain version exactly; one launch per call;
+    then each timed at 8 rows (the benchmark caller's), N_max rows (one
+    window) and N (one engine step, the main shape) beside the plain
+    version, the FP32 product torch.matmul(z, R.T) (TF32 off) and both
+    bounds."""
+    from repro_torch.core import hdc
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_project as sp
+
+    d, D = cfg.feat_dim, cfg.D
+    rows = (8, cfg.N_max, N)
     z = torch.randn((N, d), generator=gen).to(dev)
     R = (torch.randn((D, d), generator=gen) / np.sqrt(d)).to(dev)
-    got = fw.sign_project_pack(z, R)
-    want = ref.sign_project_pack_ref(z, R)
-    torch.cuda.synchronize()
-    rule = ref.sign_pack_disagreement(z, R, got, want)
-    log(f"[kernel] sign_project_pack: z {tuple(z.shape)} R {tuple(R.shape)} "
-        f"bits {rule['bits']} decided_differ {rule['decided_differ']} "
-        f"undecided_differ {rule['undecided_differ']}")
-    if not rule["ok"]:
-        raise AssertionError(f"sign_project_pack breaks the agreement rule "
-                             f"{rule}")
-    code_err = int((hdc.unpack_bits(got, D).to(torch.int32)
-                    - hdc.unpack_bits(want, D).to(torch.int32)).abs().max())
-    # the one library call: the float32 product alone (cuBLAS, TF32 off);
-    # no PyTorch call computes the signs and packs them
-    report["sign_project_pack"] = _entry(
-        "sign_project_pack",
-        "src/repro_torch/kernels/csrc/sign_project_pack.cu",
-        "src/repro/kernels/fused_window.py:382", code_err,
-        cuda_ms(lambda: fw.sign_project_pack(z, R)),
-        cuda_ms(lambda: ref.sign_project_pack_ref(z, R)),
-        bound(4 * (N * d + D * d + N * D // 32), 2 * N * D * d / PEAK_FP32_S),
-        library_ms=cuda_ms(lambda: torch.matmul(z, R.T)))
-
-    # sign_project: int8 codes at the encode shape (N = S x N_max), at its
-    # benchmark caller's shape (N = 8), at a ragged shape, and with an
-    # all-zero feature row (every code +1); held to the plain version by
-    # the agreement rule, timed at both main shapes
     zr = torch.randn((37, d), generator=gen).to(dev)
-    zr[5] = 0.0
+    zr[5] = 0.0                      # y = +-0: every code +1
+    zr[9, 100] = float("nan")        # y NaN: every code -1
     Rr = R[:8160].contiguous()
-    for label, (zz, RR) in {
-        f"encode(N={N})": (z, R), "caller(N=8)": (z[:8].contiguous(), R),
-        "ragged(N=37,D=8160), zero row 5": (zr, Rr),
-    }.items():
-        got = sp.sign_project(zz, RR)
-        want = ref.sign_project_ref(zz, RR)
-        torch.cuda.synchronize()
-        rule = ref.sign_disagreement(zz, RR, got, want)
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        log(f"[kernel] sign_project {label}: codes {rule['bits']} "
-            f"decided_differ {rule['decided_differ']} undecided_differ "
-            f"{rule['undecided_differ']} max_abs_err {err}")
-        if not rule["ok"] or got.dtype != torch.int8 or \
-                got.shape != want.shape:
-            raise AssertionError(f"sign_project {label} breaks the "
-                                 f"agreement rule {rule}")
-        if label.startswith("ragged") and not bool((got[5] == 1).all()):
-            raise AssertionError("sign_project: a zero row must code +1")
-        if label.startswith("encode"):
-            main_err = err
-    for n_rows in (8, N):
-        zz = z[:n_rows].contiguous()
-        entry = _entry(
-            f"sign_project(N={n_rows})",
-            "src/repro_torch/kernels/csrc/sign_project.cu",
-            "src/repro/kernels/sign_project.py:30", main_err,
-            cuda_ms(lambda: sp.sign_project(zz, R)),
-            cuda_ms(lambda: ref.sign_project_ref(zz, R)),
-            # z and R read once, the int8 codes written once; an FMA is two
-            # operations at the FP32 rate
-            bound(4 * (n_rows * d + D * d) + n_rows * D,
-                  2 * n_rows * D * d / PEAK_FP32_S),
-            library_ms=cuda_ms(lambda: torch.matmul(zz, R.T)))
-    report["sign_project"] = dict(entry, name="sign_project")
+    kernels = {
+        "sign_project_pack": dict(
+            fn=fw.sign_project_pack, plain=ref.sign_project_pack_ref,
+            rule=ref.sign_pack_disagreement, out_bytes=lambda n: n * D // 8,
+            codes=lambda w, DD: hdc.unpack_bits(w, DD).to(torch.int32),
+            replaces="src/repro/kernels/fused_window.py:382"),
+        "sign_project": dict(
+            fn=sp.sign_project, plain=ref.sign_project_ref,
+            rule=ref.sign_disagreement, out_bytes=lambda n: n * D,
+            codes=lambda c, DD: c.to(torch.int32),
+            replaces="src/repro/kernels/sign_project.py:30"),
+    }
+    report = {}
+    for name, k in kernels.items():
+        shapes = {f"N={n}": (z[:n].contiguous(), R) for n in rows}
+        shapes["ragged(N=37,D=8160), zero row 5, NaN row 9"] = (zr, Rr)
+        errs = {}
+        for label, (zz, RR) in shapes.items():
+            before = build.LAUNCHES[name]
+            got = k["fn"](zz, RR)
+            if build.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{name} {label}: "
+                                     f"{build.LAUNCHES[name] - before} "
+                                     f"launches for one call")
+            want = k["plain"](zz, RR)
+            torch.cuda.synchronize()
+            rule = k["rule"](zz, RR, got, want)
+            err = int((k["codes"](got, RR.shape[0])
+                       - k["codes"](want, RR.shape[0])).abs().max())
+            errs[label] = err
+            log(f"[kernel] {name} {label}: bits {rule['bits']} "
+                f"decided_differ {rule['decided_differ']} undecided_differ "
+                f"{rule['undecided_differ']} max_abs_err {err}")
+            if not rule["ok"] or rule["decided_differ"] != 0 or \
+                    got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {label} breaks the agreement "
+                                     f"rule {rule}")
+            if label.startswith("ragged"):
+                for row in (5, 9):
+                    if not torch.equal(got[row], want[row]):
+                        raise AssertionError(f"{name}: row {row} differs "
+                                             "from the plain version")
+        by_n = {}
+        for n in rows:
+            zz = z[:n].contiguous()
+            b, b32 = _encode_bounds(n, d, D, k["out_bytes"](n))
+            fn, plain = k["fn"], k["plain"]
+            t = dict(
+                ms=device_ms(lambda: fn(zz, R)),
+                call_ms=cuda_ms(lambda: fn(zz, R)),
+                plain_ms=cuda_ms(lambda: plain(zz, R)),
+                library_ms=device_ms(lambda: torch.matmul(zz, R.T)),
+                library_call_ms=cuda_ms(lambda: torch.matmul(zz, R.T)),
+                bound_ms=b[0], bound_by=b[1], bound_fp32_ms=b32[0],
+                bound_fp32_by=b32[1])
+            by_n[n] = t
+            log(f"[time] {name}(N={n}): kernel {t['ms']:.4f} ms on the device "
+                f"({t['call_ms']:.4f} ms for one call with its host time), "
+                f"torch.matmul {t['library_ms']:.4f} ms "
+                f"({t['library_call_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms 3xTF32 ({t['bound_by']}), "
+                f"{t['bound_fp32_ms']:.4f} ms FP32 ({t['bound_fp32_by']}); "
+                f"kernel / matmul {t['ms'] / t['library_ms']:.3f}")
+        main = by_n[N]
+        report[name] = dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=k["replaces"], max_abs_err=errs[f"N={N}"],
+            **{key: main[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "call_ms", "library_call_ms", "bound_fp32_ms")},
+            by_rows={str(n): t for n, t in by_n.items()})
     return report
 
 
@@ -620,9 +696,10 @@ def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
 
 def phase_evaluate(cfg, world, sys_):
     """evaluate_task for the five tasks on the card; one task's per-frame
-    scores and telemetry equal to the same run on the CPU."""
+    scores and telemetry equal to the same run on the CPU fed the card's
+    packed queries."""
     from repro_torch.data import tood_synth as ts
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.serving import tood_pipelines as tp
 
     build.reset_launches()
@@ -643,10 +720,28 @@ def phase_evaluate(cfg, world, sys_):
         if not all(np.isfinite([r["ap_torr"], r["ap_dense"],
                                 r["ap_naive_hdc"]])):
             raise AssertionError(f"{r['task']}: AP not finite")
+    # task 0 again on the CPU, fed the card's packed queries (the encode
+    # is held to the CPU's by its agreement rule, not bit for bit: a code
+    # whose |y| is within rounding of zero may differ), the rest of the
+    # pipeline bit for bit
     t0 = time.perf_counter()
     frames = ts.simulate_sequence(world, 0, EVAL_FRAMES, 0,
                                   n_max=cfg.N_max)
-    scores, tels = tp.run_torr(sys_, frames, 0, device="cpu")
+    R = torch.from_numpy(np.array(sys_.R, np.float32))
+    words = []
+    for t, f in enumerate(frames):
+        card = ops.encode_packed(f.feats, R.cuda()).cpu()
+        z = torch.from_numpy(np.array(f.feats, np.float32))
+        rule = ref.sign_pack_disagreement(
+            z, R, card, ops.encode_packed(f.feats, R, device="cpu"))
+        log(f"[evaluate] task 0 frame {t} encode, card vs CPU: "
+            f"decided_differ {rule['decided_differ']} undecided_differ "
+            f"{rule['undecided_differ']} of {rule['bits']}")
+        if not rule["ok"] or rule["decided_differ"]:
+            raise AssertionError(f"evaluate task 0 frame {t}: the card's "
+                                 f"encode breaks the agreement rule {rule}")
+        words.append(card)
+    scores, tels = tp.run_torr(sys_, frames, 0, device="cpu", words=words)
     for t in range(EVAL_FRAMES):
         if not np.array_equal(scores[t].view(np.int32),
                               results[0]["scores"][t].view(np.int32)):
@@ -657,8 +752,9 @@ def phase_evaluate(cfg, world, sys_):
                               getattr(results[0]["telemetry"][t], f.name)):
                 raise AssertionError(f"evaluate task 0 frame {t}: "
                                      f"telemetry {f.name} differs")
-    log(f"[evaluate] task 0 on the CPU ({time.perf_counter() - t0:.1f} s): "
-        f"per-frame scores and telemetry bit-equal to the card's")
+    log(f"[evaluate] task 0 on the CPU from the card's encodes "
+        f"({time.perf_counter() - t0:.1f} s): per-frame scores and telemetry "
+        f"bit-equal to the card's")
 
 
 def phase_sign_project(sys_, frames, report):

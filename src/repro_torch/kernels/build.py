@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library under ``_build/`` beside the sources (listed in
-``.gitignore``), named by a hash of the source and flags so a changed source
-never loads a stale library. All sources build at once, one ``nvcc`` process
-each, at first use; nothing is built or imported when the module is
-imported. A source that fails to build raises: there is no fallback.
+``.gitignore``), named by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so a changed source or header never loads a stale
+library. All sources build at once, one ``nvcc`` process each, at first
+use; nothing is built or imported when the module is imported. A source
+that fails to build raises: there is no fallback.
 
 The wrappers share :func:`route` (a CPU tensor takes the plain version, a
 CUDA tensor the kernel) and :func:`launch`, which runs a kernel on the
@@ -57,9 +58,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    """The library of kernel ``name``, tagged by its source, every shared
+    header in ``csrc/`` (a ``.cu`` may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, str]:

@@ -1,123 +1,89 @@
 // Bipolar sign projection on Hopper (sm_90a): codes = sign(z @ R^T) as int8.
 //
-// Replaces the TPU kernel src/repro/kernels/sign_project.py::sign_project
-// (body _kernel). out[n, j] = +1 if y[n, j] >= 0 else -1, where
-// y = z @ R^T in float32 (sign(0) -> +1; NaN -> -1, as
+// Replaces the TPU kernel src/repro/kernels/sign_project.py:30
+// (sign_project, body _kernel, pallas_call at :46). out[n, j] = +1 if
+// y[n, j] >= 0 else -1, where y = z @ R^T (sign(0) -> +1; NaN -> -1, as
 // jnp.where(y >= 0, 1, -1)). z is [N, d], R is [D, d], both row-major.
 //
-// What bounds it on the H100: at the encode shape (N = 2048 feature rows,
-// d = 512, D = 8192) the product is 2*N*D*d = 17.2 G float32 operations,
-// about 256 us at the 67 TFLOP/s CUDA-core rate, against 37 MB of traffic
-// (about 11 us at 3.35 TB/s): operations bound it. At its benchmark
-// caller's shape (N = 8) it is the other way round: the 16.8 MB of R take
-// about 5 us to read and the 67 M operations 1 us, so bytes bound it. The
-// tensor cores would be faster but run TF32 or lower precision, which
-// changes signs near zero, so this kernel stays on plain FP32 FMAs.
+// What bounds it on the H100: at the encode shape (N = 2048, d = 512,
+// D = 8192) operations do: the 3xTF32 product below is 3 * 2NDd = 51.5 G
+// operations, 0.104 ms at the 495 TFLOP/s dense TF32 rate, against 37 MB of
+// traffic (11 us at 3.35 TB/s); on FP32 FMAs it would take 0.256 ms. At a
+// single window (N = 128) operations still bound it (6.5 us against 5.1 us
+// of bytes); at its benchmark caller's shape (N = 8) bytes do: R's 16.8 MB
+// read once take 5 us, the operations 0.4 us.
 //
-// What the design does about it: a register-tiled FP32 product. A block
-// of 256 threads owns a BM x BN = 64 x 64 tile of (rows, dims) and walks
-// the feature axis in stages of BK = 16 columns: it stages the z tile and
-// the R tile in shared memory transposed (k-major, so each thread reads its
-// 4 rows and its 4 dims as one float4 each, conflict-free across the warp),
-// and each thread keeps a 4 x 4 block of float32 accumulators in registers,
-// 16 FMAs per two shared-memory loads. The float32 y never reaches device
-// memory: the epilogue writes y >= 0 ? 1 : -1 as int8, four consecutive
-// dims of a row per 32-bit store where D % 4 == 0 and the tile is whole,
-// byte by byte on the ragged edge. Any N, d and D work (the ragged edges are
-// masked with zeros, which add nothing to a sum).
+// Why 3xTF32 and not TF32: the agreement rule (kernels/ref.py::
+// sign_disagreement) lets no code with |y| > tau = d * 2^-23 * sum|z*R|
+// (2^-14 sum|z*R| at d = 512) differ, and at most 1e-4 of the codes below
+// it. One TF32 product (10-bit mantissas, error about 2^-11 |z*R| per
+// product) flipped 87 of 1,048,576 codes (83 % of that budget) in the
+// emulation of tests/test_torch_encode_split.py at N = 128, d = 512,
+// D = 8192; 3xTF32 (about 2^-21 |z*R| per product, two orders of
+// magnitude inside tau) flipped none there.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it: the product runs on the tensor cores
+// (sign_gemm.cuh: warpgroup MMA from a cp.async ring at N > 128, mma.sync
+// with D on the M side at N <= 128, where a block takes 32 dims and every
+// row, so R is read once), and the float32 y never reaches device memory.
+// The epilogue reads the block's y tile from shared memory, one thread per
+// four consecutive dims of a row, and writes y >= 0 ? 1 : -1 as int8: one
+// 32-bit store per four dims where D % 4 == 0 (consecutive threads on
+// consecutive words of a row), bytes on the ragged edge. Any N, d and D
+// work.
+
+#include "sign_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // feature rows (z rows) per block
-constexpr int BN = 64;   // projected dims (R rows) per block
-constexpr int BK = 16;   // feature columns per shared-memory stage
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // dims per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int PAD = 4;   // keeps float4 alignment of the transposed rows
+struct CodeEpilogue {
+  using Out = int8_t;
 
-__global__ void __launch_bounds__(THREADS)
-sign_project_kernel(const float* __restrict__ z, const float* __restrict__ R,
-                    int8_t* __restrict__ out, int N, int d, int D) {
-  __shared__ __align__(16) float zs[BK][BM + PAD];
-  __shared__ __align__(16) float rs[BK][BN + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);   // which 4 dims of the tile
-  const int ty = tid / (BN / TN);   // which 4 rows of the tile
-  const int n0 = blockIdx.y * BM;
-  const int dim0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+  template <class T>
+  static __device__ void store(const float* ys, int8_t* out, int row0,
+                               int dim0, int N, int D) {
+    constexpr int QPR = T::DIMS / 4;           // four-dim quads per row
+    constexpr int ITEMS = T::ROWS * QPR;
+    const bool whole = D % 4 == 0;
+    for (int q = threadIdx.x; q < ITEMS; q += T::THREADS) {
+      const int r = q / QPR, c = (q % QPR) * 4;
+      const int n = row0 + r, dim = dim0 + c;
+      if (n >= N || dim >= D) continue;
+      const float4 v = sign_gemm::y_quad<T>(ys, r, c);
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+      int8_t* row = out + (size_t)n * D;
+      if (whole) {
+        uint32_t w = 0;
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t code = vv[j] >= 0.f ? 0x01u : 0xffu;
+          w |= code << (8 * j);   // little-endian: dim + j is byte j
+        }
+        *reinterpret_cast<uint32_t*>(row + dim) = w;
+      } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // consecutive threads read consecutive feature columns of one row
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, k = i - r * BK;
-      const int n = n0 + r, kk = k0 + k;
-      zs[k][r] = (n < N && kk < d) ? z[(size_t)n * d + kk] : 0.f;
-    }
-    for (int i = tid; i < BN * BK; i += THREADS) {
-      const int c = i / BK, k = i - c * BK;
-      const int dim = dim0 + c, kk = k0 + k;
-      rs[k][c] = (dim < D && kk < d) ? R[(size_t)dim * d + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&zs[k][ty * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&rs[k][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[m][j] = fmaf(av[m], bv[j], acc[m][j]);
-    }
-    __syncthreads();
-  }
-
-  const int dim = dim0 + tx * TN;
-  const bool whole = (D % 4 == 0) && (dim + TN <= D);
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int n = n0 + ty * TM + m;
-    if (n >= N) continue;
-    int8_t* row = out + (size_t)n * D;
-    if (whole) {
-      uint32_t w = 0;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const uint32_t code = acc[m][j] >= 0.f ? 0x01u : 0xffu;
-        w |= code << (8 * j);   // little-endian: dim + j is byte j
-      }
-      *reinterpret_cast<uint32_t*>(row + dim) = w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        if (dim + j < D) row[dim + j] = acc[m][j] >= 0.f ? 1 : -1;
+        for (int j = 0; j < 4; ++j) {
+          if (dim + j < D) row[dim + j] = vv[j] >= 0.f ? 1 : -1;
+        }
       }
     }
   }
-}
+
+  // From the wgmma accumulators (N > 128): through the y tile, so that
+  // consecutive threads store consecutive words of a row
+  template <class T>
+  static __device__ void store_acc(const float (&acc)[T::NA], float* smem,
+                                   int8_t* out, int row0, int dim0, int N,
+                                   int D, int arow, int t) {
+    sign_gemm::acc_to_y<T>(acc, smem, arow, t);
+    store<T>(smem, out, row0, dim0, N, D);
+  }
+};
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 extern "C" int sign_project_launch(const void* z, const void* R, void* out,
                                    int N, int d, int D, void* stream) {
-  if (N <= 0 || d <= 0 || D <= 0 || (N + BM - 1) / BM > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((D + BN - 1) / BN, (N + BM - 1) / BM);
-  sign_project_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)R, (int8_t*)out, N, d, D);
-  return (int)cudaGetLastError();
+  return sign_gemm::launch<CodeEpilogue>(z, R, out, N, d, D, stream);
 }

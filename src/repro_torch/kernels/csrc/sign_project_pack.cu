@@ -1,82 +1,103 @@
 // Encode front-end on Hopper (sm_90a): packed words = pack(sign(z @ R^T)).
 //
-// Replaces the TPU kernel src/repro/kernels/fused_window.py::sign_project_pack
-// (body _pack_kernel). out[n, w] bit i is 1 iff y[n, 32w+i] >= 0, where
-// y = z @ R^T in float32 (sign(0) -> +1; NaN -> bit 0, as jnp.where(y >= 0)).
+// Replaces the TPU kernel src/repro/kernels/fused_window.py:382
+// (sign_project_pack, body _pack_kernel, pallas_call at :403). out[n, w]
+// bit i is 1 iff y[n, 32w+i] >= 0, where y = z @ R^T (sign(0) -> +1;
+// NaN -> bit 0, as jnp.where(y >= 0)); the layout of core/hdc.py::pack_bits.
 //
-// What bounds it on the H100: at the main-path shape (N = 2048 feature rows,
-// d = 512, D = 8192) the product is 2*N*D*d = 17.2 G float32 operations,
-// about 256 us at the 67 TFLOP/s CUDA-core rate, against 22 MB of traffic
-// (about 7 us at 3.35 TB/s): operations bound it. The tensor cores would be
-// faster but run TF32 or lower precision, which changes signs near zero, so
-// this kernel stays on plain FP32 FMAs.
+// What bounds it on the H100: at the engine's shape (N = 2048 feature rows,
+// d = 512, D = 8192) operations do. The product that the agreement rule
+// accepts is three TF32 products (3xTF32, below): 3 * 2NDd = 51.5 G
+// operations, 0.104 ms at the 495 TFLOP/s dense TF32 rate, against 22 MB of
+// traffic (6.6 us at 3.35 TB/s); on FP32 FMAs the same product would take
+// 0.256 ms. At a single window (N = 128) operations still bound it (6.5 us
+// against 5.1 us of bytes); at N = 8 bytes do (R's 16.8 MB read once, 5 us).
 //
-// What the design does about it: neither the float32 projection nor the
-// bipolar code ever reaches device memory; only the packed words are
-// written (32x fewer bytes than the f32 y). One warp computes the 32
-// consecutive dims of one packed word: lane i owns dim 32w+i and keeps the
-// float32 FMA dot for ROWS feature rows in registers, reading R from a
-// shared-memory tile (row stride KC+1, conflict-free) and z as a broadcast.
-// __ballot_sync(y >= 0) is then exactly the packed word (bit i = lane i),
-// and one lane stores it.
+// Why 3xTF32 and not TF32: the agreement rule (kernels/ref.py::
+// sign_disagreement) lets no code with |y| > tau = d * 2^-23 * sum|z*R|
+// (2^-14 sum|z*R| at d = 512) differ, and at most 1e-4 of the codes below
+// it. One TF32 product (10-bit mantissas, error about 2^-11 |z*R| per
+// product) flipped 87 of 1,048,576 codes (83 % of that budget) in the
+// emulation of tests/test_torch_encode_split.py at N = 128, d = 512,
+// D = 8192; 3xTF32 (about 2^-21 |z*R| per product, two orders of
+// magnitude inside tau) flipped none there.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it: the product runs on the tensor cores
+// (sign_gemm.cuh: warpgroup MMA from a cp.async ring at N > 128, mma.sync
+// with D on the M side at N <= 128), and neither the float32 y nor the
+// bipolar code reaches device memory. At N > 128 the words are built from
+// the accumulators in registers: a thread holds 8 bits of each word of its
+// two rows, and the row's four lanes OR them together with two shuffles.
+// At N <= 128 the epilogue reads the block's y tile from shared memory: a
+// warp takes 32 (row, word) items, for each one lane i reads dim 32w+i and
+// __ballot_sync(y >= 0) is exactly the packed word (bit i = lane i).
+
+#include "sign_gemm.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;    // feature rows per block (registers per lane)
-constexpr int WARPS = 8;   // packed words per block: one warp each
-constexpr int KC = 32;     // feature columns per shared-memory stage
+struct PackEpilogue {
+  using Out = uint32_t;
 
-__global__ void __launch_bounds__(WARPS * 32)
-sign_project_pack_kernel(const float* __restrict__ z,
-                         const float* __restrict__ R,
-                         uint32_t* __restrict__ out, int N, int d, int D) {
-  __shared__ float zs[ROWS][KC];
-  __shared__ float rs[WARPS * 32][KC + 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.y * ROWS;
-  const int dim0 = blockIdx.x * WARPS * 32;
-  const int words = D / 32;
-
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    for (int i = threadIdx.x; i < ROWS * KC; i += WARPS * 32) {
-      const int r = i / KC, k = i - r * KC;
-      const int n = n0 + r, kk = k0 + k;
-      zs[r][k] = (n < N && kk < d) ? z[(size_t)n * d + kk] : 0.f;
-    }
-    for (int i = threadIdx.x; i < WARPS * 32 * KC; i += WARPS * 32) {
-      const int r = i / KC, k = i - r * KC;
-      const int dim = dim0 + r, kk = k0 + k;
-      rs[r][k] = (dim < D && kk < d) ? R[(size_t)dim * d + kk] : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(KC, d - k0);
-    const float* rrow = rs[warp * 32 + lane];
-    for (int k = 0; k < kn; ++k) {
-      const float rv = rrow[k];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(zs[r][k], rv, acc[r]);
-    }
-    __syncthreads();
-  }
-
-  const int word = blockIdx.x * WARPS + warp;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const unsigned bits = __ballot_sync(0xffffffffu, acc[r] >= 0.f);
-    const int n = n0 + r;
-    if (lane == 0 && n < N && word < words) {
-      out[(size_t)n * words + word] = bits;
+  template <class T>
+  static __device__ void store(const float* ys, uint32_t* out, int row0,
+                               int dim0, int N, int D) {
+    constexpr int WPR = T::DIMS / 32;          // words per block row
+    constexpr int ITEMS = T::ROWS * WPR;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int words = D / 32;
+    for (int base = warp * 32; base < ITEMS; base += T::WARPS * 32) {
+      uint32_t mine = 0;
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) {
+        const int item = base + j;
+        const float v = item < ITEMS
+            ? sign_gemm::y_at<T>(ys, item / WPR, (item % WPR) * 32 + lane)
+            : 0.f;
+        const uint32_t bits = __ballot_sync(0xffffffffu, v >= 0.f);
+        if (lane == j) mine = bits;
+      }
+      const int item = base + lane;
+      const int n = row0 + item / WPR, w = dim0 / 32 + item % WPR;
+      if (item < ITEMS && n < N && w < words) {
+        out[(size_t)n * words + w] = mine;
+      }
     }
   }
-}
+
+  // From the wgmma accumulators (N > 128), with no pass through shared
+  // memory: for rows arow and arow + 8 the thread holds dims 8j + 2t and
+  // 8j + 2t + 1 of every n8 tile j, i.e. 8 bits of each word; the four
+  // lanes t of a row OR theirs together, and lane t stores the words
+  // w = t (mod 4) of the block's row
+  template <class T>
+  static __device__ void store_acc(const float (&acc)[T::NA], float*,
+                                   uint32_t* out, int row0, int dim0, int N,
+                                   int D, int arow, int t) {
+    const int words = D / 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = row0 + arow + 8 * h;
+#pragma unroll
+      for (int wd = 0; wd < T::DIMS / 32; ++wd) {
+        uint32_t part = 0;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            part |= (acc[4 * (4 * wd + jj) + 2 * h + p] >= 0.f ? 1u : 0u)
+                    << (8 * jj + p);
+        part <<= 2 * t;                       // bit 8 jj + 2 t + p
+        part |= __shfl_xor_sync(0xffffffffu, part, 1);
+        part |= __shfl_xor_sync(0xffffffffu, part, 2);
+        const int w = dim0 / 32 + wd;
+        if ((wd & 3) == t && n < N && w < words) {
+          out[(size_t)n * words + w] = part;
+        }
+      }
+    }
+  }
+};
 
 }  // namespace
 
@@ -84,12 +105,6 @@ sign_project_pack_kernel(const float* __restrict__ z,
 extern "C" int sign_project_pack_launch(const void* z, const void* R,
                                         void* out, int N, int d, int D,
                                         void* stream) {
-  if (N <= 0 || d <= 0 || D <= 0 || D % 32 != 0 ||
-      (N + ROWS - 1) / ROWS > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((D + WARPS * 32 - 1) / (WARPS * 32), (N + ROWS - 1) / ROWS);
-  sign_project_pack_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)R, (uint32_t*)out, N, d, D);
-  return (int)cudaGetLastError();
+  if (D % 32 != 0) return (int)cudaErrorInvalidValue;
+  return sign_gemm::launch<PackEpilogue>(z, R, out, N, d, D, stream);
 }

@@ -109,20 +109,24 @@ def run_naive_hdc(sys: TorrSystem, frames, task_id: int):
 
 
 def run_torr(sys: TorrSystem, frames, task_id: int, queue_depth: int = 0,
-             *, device=None):
+             *, device=None, words=None):
     """The cache-gated pipeline over one stream's frames on the
     single-window step's default (switch) lowering; returns (per-frame max
     scores with -1e9 on padding, telemetry list on the CPU). Runs on
-    ``cuda`` unless ``device="cpu"``."""
+    ``cuda`` unless ``device="cpu"``. ``words``, if given, holds each
+    frame's packed queries (int32 [N_max, D/32]) in place of the encode,
+    e.g. another device's, so that the rest of the pipeline can be held to
+    that device's run bit for bit."""
     dev = resolve_device(device)
     cfg = sys.cfg
     im = sys.im.to(dev)
     state = pipeline.init_state(cfg, sys.task_w[task_id], dev)
     R = torch.from_numpy(np.array(sys.R, np.float32)).to(dev)
     out, telems = [], []
-    for f in frames:
+    for t, f in enumerate(frames):
         # fused encode front-end: projection + sign + bit-pack in one kernel
-        q = ops.encode_packed(f.feats, R, device=dev)
+        q = (ops.encode_packed(f.feats, R, device=dev) if words is None
+             else torch.as_tensor(words[t], device=dev))
         state, res, tel = pipeline.torr_window_step(
             state, im, q, torch.as_tensor(f.valid, device=dev),
             torch.as_tensor(f.boxes, device=dev),

@@ -262,3 +262,31 @@ def test_run_torr_matches_jax():
         assert_dataclass_same(ttels[t], jtels[t], t)
     paths = np.concatenate([t.path.numpy() for t in ttels])
     assert (paths != 2).any()           # reuse happened after frame 0
+
+
+def test_run_torr_takes_supplied_words():
+    """``run_torr(words=)`` runs the pipeline on the given packed queries in
+    place of its encode (how the card's run is held to the CPU's when the
+    two encodes may differ in a code within rounding of zero): its own
+    encodes give the same run, other words another one."""
+    kw = dict(SMALL, K=8)
+    tcfg, jcfg = TorrConfig(**kw), JCfg(**kw)
+    world = jts.make_world(1, M=kw["M"], d=kw["feat_dim"])
+    jsys = jtp.build_system(world, jcfg, seed=1)
+    tsys = convert.system_from_numpy(jsys.R, np.asarray(jsys.im.bipolar),
+                                     jsys.task_w, cfg=tcfg)
+    frames = jts.simulate_sequence(world, 2, 4, seed=1, n_max=kw["N_max"])
+    from repro_torch.kernels import ops
+    words = [ops.encode_packed(f.feats, tsys.R, device="cpu")
+             for f in frames]
+    base = tp.run_torr(tsys, frames, 2, queue_depth=1, device="cpu")
+    same = tp.run_torr(tsys, frames, 2, queue_depth=1, device="cpu",
+                       words=words)
+    for t in range(len(frames)):
+        assert_same(same[0][t], base[0][t], t)
+        assert_dataclass_same(same[1][t], base[1][t], t)
+    flipped = [w.clone() for w in words]
+    flipped[0][0] = ~flipped[0][0]      # proposal 0 of frame 0 negated
+    other = tp.run_torr(tsys, frames, 2, queue_depth=1, device="cpu",
+                        words=flipped)
+    assert not np.array_equal(other[0][0], base[0][0])

@@ -128,3 +128,27 @@ def test_wrappers_reject_bad_inputs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.encode_packed(np.zeros((2, 8)), np.ones((64, 8)))
+
+
+def test_build_tag_follows_every_shared_header(monkeypatch, tmp_path):
+    """A library's tag hashes its source, every ``csrc/*.cuh`` (a source
+    may include any of them) and the flags: an edited header never loads a
+    stale library. Needs no nvcc: it computes tags only."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    tags = [build._target("k")]
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    tags.append(build._target("k"))
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    tags.append(build._target("k"))
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    tags.append(build._target("k"))
+    assert len(set(tags)) == 4, tags
+    assert all(t.parent == build.BUILD_DIR and t.name.startswith("k-")
+               for t in tags)
+    (tmp_path / "shared.cuh").write_text("// v1\n")   # back to the first
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    assert build._target("k") == tags[0]
