@@ -18,7 +18,13 @@ printing its result line):
      the card could take (``bound_ms``); the encodes, and their library
      call torch.matmul(z, R.T), also as device time per call from a CUDA
      graph of 20 calls (their ``ms``), with a 3xTF32 and an FP32 bound at
-     each of the three row counts;
+     each of the three row counts; ``fused_scores`` and ``delta_update`` at
+     the shapes their launches use (N = N_max and S x N_max rows; L = 1
+     and S rows with the whole budget and one entry weighted) the same two
+     ways, ``fused_scores`` beside its int8 tensor-core bound (its
+     ``bound_ms``: the card's peak rate for this work), the popcount bound
+     and torch._int_mm on the unpacked +-1 codes (a reference, not the
+     library column: it reads 8x the bytes);
   3. serving at the edge config (``torr_edge()``) on the multi-stream
      step's default (prefix) lowering: 16 streams in 16 slots, 4 windows
      each of the traffic ``launch/serve.py`` serves (``simulate_sequence``
@@ -30,7 +36,11 @@ printing its result line):
      the cache depth): bypass and delta must occur after each stream's
      first window, and the card must again equal the CPU engine;
   5. the serial switch engine (``StreamEngine(serial=True)``: the
-     ``fused_scores`` and ``delta_update`` kernels) on the served traffic,
+     ``fused_scores`` and ``delta_update`` kernels) on the served traffic;
+     after the run, the weighted entries per row of its proposals'
+     ``delta_update`` launches, read from the run's telemetry, are printed
+     and ``delta_update`` is checked and timed at their median (the
+     report's main shape),
      and the compact and auto engines (``fused="compact"``/``"auto"``: the
      ``packed_hamming_batched`` decide tables and the bucket scan) on both
      traffics, each bit-equal to the card's prefix engine of phase 3 or 4
@@ -87,11 +97,15 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_TF32_S = 495e12        # dense, on the tensor cores
+PEAK_INT8_S = 1979e12       # dense int8 TOP/s, on the tensor cores
 # Integer issue rates of compute capability 9.0, per SM per clock (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions): 64
 # 32-bit integer adds, multiply-adds or bitwise ops, 16 population counts
 INT32_PER_CLK, POPC_PER_CLK = 64, 16
 REPS = 20
+# the classes of one block of fused_scores.cu (the tie cases put a copy of
+# the maximum in each)
+FS_CLASS_TILE = 128
 STREAMS, WINDOWS = 16, 4
 # The auto engine's EWMA folds each step one dispatch late, from a cold
 # 1.0: even with no full-path proposal after the first window it first
@@ -237,17 +251,15 @@ def _check(name, label, got, want):
     return err
 
 
-def phase_kernels(cfg, im_cuda):
+def phase_kernels(cfg, im_cuda, rates):
     """Every kernel vs its plain version on the card, then timed."""
     from repro_torch.core import aligner, item_memory
-    from repro_torch.kernels import delta_update as du
     from repro_torch.kernels import fused_window as fw
     from repro_torch.kernels import ref
     from repro_torch.kernels import xnor_popcount_sim as xps
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(11)
-    rates = Rates()
     report = {}
 
     def words(*shape):
@@ -290,78 +302,10 @@ def phase_kernels(cfg, im_cuda):
         cuda_ms(lambda: ref.bank_prefix_hamming_ref(q, im_w, cap=cfg.B)),
         bound(4 * (N * W + M * W + N * M * cfg.B), rates.popc_s(N * M * W)))
 
-    # fused_scores: one window's proposals against the item memory at the
-    # switch path's widest plan (b = 8 banks), reduced ones (b = 2; the
-    # ladder's (4, 1) and (1, 1), 32 and 8 words), a ragged shape, and an
-    # item memory of duplicated rows (every row's maximum tied: the first
-    # copy must win and top2[1] == top2[0])
-    Nw = cfg.N_max
-    qw = words(Nw, W)
-    dup = torch.cat([im_w[:M // 2], im_w[:M // 2]]).contiguous()
-    for label, (qq, hh) in {
-        "main(b=8)": (qw, im_w),
-        "reduced(b=2)": (qw[:, :2 * cfg.bank_words].contiguous(),
-                         im_w[:, :2 * cfg.bank_words].contiguous()),
-        "plan(4,1): W=32": plan_cols(qw, 4, 1),
-        "plan(1,1): W=8": plan_cols(qw, 1, 1),
-        "ragged(N=37,M=1000,W=96)": (words(37, 96),
-                                     im_w[:1000, :96].contiguous()),
-        "tied(duplicated rows)": (qw, dup),
-    }.items():
-        d_eff = 32 * qq.shape[1]
-        got = fw.fused_scores(qq, hh, d_eff=d_eff)
-        err = _check("fused_scores", label, got,
-                     ref.fused_scores_ref(qq, hh, d_eff=d_eff))
-        if label.startswith("tied"):
-            if not (bool((got[1] < M // 2).all())
-                    and torch.equal(got[2][:, 0], got[2][:, 1])):
-                raise AssertionError("fused_scores: ties not resolved to "
-                                     "the first copy")
-        if label.startswith("main"):
-            main_err = err
-    report["fused_scores"] = _entry(
-        "fused_scores", "src/repro_torch/kernels/csrc/fused_scores.cu",
-        "src/repro/kernels/fused_window.py:141", main_err,
-        cuda_ms(lambda: fw.fused_scores(qw, im_w, d_eff=cfg.D)),
-        cuda_ms(lambda: ref.fused_scores_ref(qw, im_w, d_eff=cfg.D)),
-        bound(4 * (Nw * W + M * W + Nw * M + 3 * Nw),
-              rates.popc_s(Nw * M * W)))
-
-    # delta_update: one proposal of every stream (L = 16 rows of the
-    # delta budget), half of each row padding, every fifth row all padding;
-    # and a ragged M (no vector loads)
-    L, Kb, D = S, cfg.delta_budget, cfg.D
-    dmajor = im_cuda.dmajor
-    acc = torch.randint(-4000, 4000, (L, M), generator=gen,
-                        dtype=torch.int32).to(dev)
-    idx = torch.randint(0, D, (L, Kb), generator=gen,
-                        dtype=torch.int32).to(dev)
-    wts = (torch.randint(0, 2, (L, Kb), generator=gen,
-                         dtype=torch.int32) * 4 - 2)
-    wts[:, Kb // 2:] = 0
-    wts[::5] = 0
-    wts = wts.to(dev)
-    dm_r = dmajor[:, :1001].contiguous()
-    for label, args in {
-        "main(L=16,budget=2048)": (acc, dmajor, idx, wts),
-        "ragged(M=1001)": (acc[:, :1001].contiguous(), dm_r, idx, wts),
-    }.items():
-        err = _check("delta_update", label, du.delta_update(*args),
-                     ref.delta_update_ref(*args))
-        if label.startswith("main"):
-            main_err = err
-    # bytes: the distinct dmajor rows the nonzero weights need, idx and w,
-    # acc in and out; operations: one multiply-add per nonzero entry and
-    # column on the 64-wide integer pipe
-    nz = wts != 0
-    rows = int(torch.unique(idx[nz]).numel())
-    report["delta_update"] = _entry(
-        "delta_update", "src/repro_torch/kernels/csrc/delta_update.cu",
-        "src/repro/kernels/delta_update.py:37", main_err,
-        cuda_ms(lambda: du.delta_update(acc, dmajor, idx, wts)),
-        cuda_ms(lambda: ref.delta_update_ref(acc, dmajor, idx, wts)),
-        bound(rows * M + 8 * L * Kb + 8 * L * M,
-              rates.int32_s(int(nz.sum()) * M)))
+    report["fused_scores"] = _fused_scores_kernel(cfg, im_w, words,
+                                                  plan_cols, rates)
+    report["delta_update"] = _delta_update_kernel(cfg, im_cuda.dmajor, gen,
+                                                  rates)
 
     # packed_hamming_batched: the batched decide pass's two tables per
     # step, proposals vs cache snapshot [16, 128] x [16, 8] and proposals
@@ -403,6 +347,295 @@ def phase_kernels(cfg, im_cuda):
     return report
 
 
+def _one_launch(name, fn):
+    """``fn()`` with the check that it launched ``name`` exactly once."""
+    from repro_torch.kernels import build
+
+    before = build.LAUNCHES[name]
+    out = fn()
+    if build.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{name}: {build.LAUNCHES[name] - before} "
+                             "launches for one call")
+    return out
+
+
+def _fused_scores_kernel(cfg, im_w, words, plan_cols, rates):
+    """fused_scores against its plain version at one window's proposals
+    (N = N_max, the switch step's launch) and one engine step's
+    (N = S x N_max, the batched switch lowering's widest launch) at the
+    widest plan, at reduced plans, ragged M and W, M = 1 (top2[1] =
+    INT32_MIN), and three tie patterns: copies 512 classes apart, adjacent
+    copies (one class tile) and a copy in every FS_CLASS_TILE-class tile
+    (each tile of the kernel's class split holds the tied maximum); the
+    first copy must win and top2[1] == top2[0]. Then both N timed two ways
+    (a CUDA graph of 20 calls, and one call with its host time) beside the
+    plain version, the int8 tensor-core bound (``bound_ms``: the kernel's
+    products run there), the popcount bound (``bound_popc_ms``), and the
+    int8 product torch._int_mm on the unpacked +-1 operands (a reference
+    that reads 8x the bytes, not a library call of the same function)."""
+    from repro_torch.core import hdc
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels import ref
+
+    Nw, W, M = cfg.N_max, cfg.words, im_w.shape[0]
+    rows = (Nw, STREAMS * Nw)
+    qs = {n: words(n, W) for n in rows}
+    qw, half, T = qs[Nw], M // 2, FS_CLASS_TILE
+    # label: (item memory, classes the first copy of each tie lies under,
+    # or 2 for adjacent copies: the first copy's index is even)
+    ties = {
+        f"tied(copies {half} apart)": (
+            torch.cat([im_w[:half], im_w[:half]]), half),
+        "tied(adjacent copies, one class tile)": (
+            im_w[:half].repeat_interleave(2, dim=0), 2),
+        f"tied(a copy in every {T}-class tile)": (
+            im_w[:T].repeat(M // T, 1), T),
+    }
+    cases = {
+        f"main(N={n},b=8)": (qs[n], im_w) for n in rows}
+    cases.update({
+        "reduced(b=2)": (qw[:, :2 * cfg.bank_words], im_w[:, :2 * cfg.bank_words]),
+        "plan(4,1): W=32": plan_cols(qw, 4, 1),
+        "plan(1,1): W=8": plan_cols(qw, 1, 1),
+        "ragged(N=37,M=1000,W=96)": (words(37, 96), im_w[:1000, :96]),
+        "ragged(N=128,M=1001,W=37)": (qw[:, :37], im_w[:1001, :37]),
+        "M=1": (qw, im_w[:1]),
+    })
+    cases.update({k: (qw, v[0]) for k, v in ties.items()})
+    errs = {}
+    for label, (qq, hh) in cases.items():
+        qq, hh = qq.contiguous(), hh.contiguous()
+        d_eff = 32 * qq.shape[1]
+        got = _one_launch("fused_scores",
+                          lambda: fw.fused_scores(qq, hh, d_eff=d_eff))
+        errs[label] = _check("fused_scores", label, got,
+                             ref.fused_scores_ref(qq, hh, d_eff=d_eff))
+        if label in ties:
+            under = ties[label][1]
+            first = (got[1] % 2 == 0) if under == 2 else (got[1] < under)
+            if not (bool(first.all())
+                    and torch.equal(got[2][:, 0], got[2][:, 1])):
+                raise AssertionError(f"fused_scores {label}: ties not "
+                                     "resolved to the first copy")
+        if label == "M=1" and not (bool((got[1] == 0).all()) and bool(
+                (got[2][:, 1] == ref.INT32_MIN).all())):
+            raise AssertionError("fused_scores M=1: best != 0 or "
+                                 "top2[1] != INT32_MIN")
+    by_rows = {}
+    for n in rows:
+        q = qs[n]
+        q_pm1 = hdc.unpack_bits(q, 32 * W)
+        im_pm1 = hdc.unpack_bits(im_w, 32 * W)
+
+        def fn():
+            return fw.fused_scores(q, im_w, d_eff=cfg.D)
+
+        def int_mm():
+            return torch._int_mm(q_pm1, im_pm1.T)
+
+        # the int8 product of the +-1 codes is acc - (d_eff - 32 W)
+        if not torch.equal(int_mm() + (cfg.D - 32 * W), fn()[0]):
+            raise AssertionError("torch._int_mm of the +-1 codes != acc")
+        moved = 4 * (n * W + M * W + n * M + 3 * n)
+        b = bound(moved, 2 * n * M * 32 * W / PEAK_INT8_S)
+        bp = bound(moved, rates.popc_s(n * M * W))
+        t = dict(ms=device_ms(fn), call_ms=cuda_ms(fn),
+                 plain_ms=cuda_ms(lambda: ref.fused_scores_ref(
+                     q, im_w, d_eff=cfg.D)),
+                 bound_ms=b[0], bound_by=b[1], bound_popc_ms=bp[0],
+                 bound_popc_by=bp[1], int_mm_ms=device_ms(int_mm),
+                 int_mm_call_ms=cuda_ms(int_mm))
+        by_rows[str(n)] = t
+        log(f"[time] fused_scores(N={n},M={M},W={W}): kernel {t['ms']:.4f} "
+            f"ms on the device ({t['call_ms']:.4f} ms for one call with its "
+            f"host time), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms int8 tensor cores ({t['bound_by']}), "
+            f"{t['bound_popc_ms']:.4f} ms popcount ({t['bound_popc_by']}); "
+            f"reference torch._int_mm on unpacked +-1 int8 operands "
+            f"[{n},{32 * W}] x [{32 * W},{M}] (8x the bytes) "
+            f"{t['int_mm_ms']:.4f} ms ({t['int_mm_call_ms']:.4f}); kernel / "
+            f"int8 bound {t['ms'] / t['bound_ms']:.2f}, kernel / popcount "
+            f"bound {t['ms'] / t['bound_popc_ms']:.2f}, kernel / "
+            f"torch._int_mm {t['ms'] / t['int_mm_ms']:.2f}")
+    main = by_rows[str(Nw)]
+    return dict(name="fused_scores", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_scores.cu",
+                replaces="src/repro/kernels/fused_window.py:141",
+                max_abs_err=max(errs.values()), library_ms=None,
+                **{k: main[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "call_ms",
+                    "bound_popc_ms", "int_mm_ms")},
+                by_rows=by_rows)
+
+
+def _delta_rows(L, K, nnz, D, gen):
+    """idx, weight int32 [L, K] laid out as ``aligner.delta_indices`` lays
+    them out: row l's first nnz[l] entries carry weight +-2 at ascending
+    distinct dims, the rest are padding (index 0, weight 0)."""
+    idx = torch.zeros((L, K), dtype=torch.int32)
+    w = torch.zeros((L, K), dtype=torch.int32)
+    for r, n in enumerate(nnz):
+        idx[r, :n] = torch.randperm(D, generator=gen)[:n].sort().values
+        w[r, :n] = torch.randint(0, 2, (n,), generator=gen) * 4 - 2
+    return idx, w
+
+
+def _delta_bound(idx, w, M, D, rates):
+    """bytes: the distinct dmajor rows the nonzero weights need, idx and w,
+    acc in and out; operations: one multiply-add per nonzero entry and
+    column on the 64-wide integer pipe."""
+    nz = w != 0
+    rows = int(torch.unique(idx[nz].clamp(0, D - 1)).numel())
+    L, K = idx.shape
+    return bound(rows * M + 8 * L * K + 8 * L * M,
+                 rates.int32_s(int(nz.sum()) * M))
+
+
+def _delta_time(label, args, rates):
+    """delta_update at ``args`` timed two ways beside the plain version and
+    the bound of this fill; logs and returns the times."""
+    from repro_torch.kernels import delta_update as du
+    from repro_torch.kernels import ref
+
+    acc, dmajor, idx, w = args
+    b = _delta_bound(idx, w, dmajor.shape[1], dmajor.shape[0], rates)
+    t = dict(ms=device_ms(lambda: du.delta_update(*args)),
+             call_ms=cuda_ms(lambda: du.delta_update(*args)),
+             plain_ms=cuda_ms(lambda: ref.delta_update_ref(*args)),
+             bound_ms=b[0], bound_by=b[1],
+             nonzero=int((w != 0).sum()))
+    log(f"[time] delta_update {label}: kernel {t['ms']:.4f} ms on the "
+        f"device ({t['call_ms']:.4f} ms for one call with its host time), "
+        f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}); kernel / bound {t['ms'] / t['bound_ms']:.2f}")
+    return t
+
+
+def _delta_check(label, args):
+    from repro_torch.kernels import delta_update as du
+    from repro_torch.kernels import ref
+
+    return _check("delta_update", label,
+                  _one_launch("delta_update", lambda: du.delta_update(*args)),
+                  ref.delta_update_ref(*args))
+
+
+def _delta_fill(L, nnz, cfg, dmajor, gen, pad_row=False):
+    """(acc, dmajor, idx, w) with L rows of nnz weighted entries each of
+    the edge budget (the last row all padding with ``pad_row``)."""
+    dev = dmajor.device
+    M, D, K = dmajor.shape[1], dmajor.shape[0], cfg.delta_budget
+    counts = [nnz] * L
+    if pad_row:
+        counts[-1] = 0
+    idx, w = _delta_rows(L, K, counts, D, gen)
+    acc = torch.randint(-4000, 4000, (L, M), generator=gen,
+                        dtype=torch.int32)
+    return acc.to(dev), dmajor, idx.to(dev), w.to(dev)
+
+
+def _delta_update_kernel(cfg, dmajor, gen, rates):
+    """delta_update against its plain version: the serial switch step's
+    launch shape (L = 1 row: one proposal of one stream) and the batched
+    switch lowering's (L = 16, one proposal of every stream), each with the
+    whole budget weighted (a proposal whose flip count reaches it) and with
+    one weighted entry (at L = 16 the last row all padding), all timed; the
+    L = 16 input of the earlier slices (half of each row padding, every
+    fifth row all padding; timed too), a ragged M (no vector loads), an
+    all-padding row, indices out of range with weight (clamped to [0, D)
+    as JAX's gather clamps), K = 1 and K = 1001 (not a multiple of the
+    kernel's budget split). The fill that the serial switch run's launches
+    see most is timed after that run (:func:`_delta_median`)."""
+    dev = dmajor.device
+    L, Kb, D, M = STREAMS, cfg.delta_budget, cfg.D, dmajor.shape[1]
+    acc = torch.randint(-4000, 4000, (L, M), generator=gen,
+                        dtype=torch.int32).to(dev)
+    idx = torch.randint(0, D, (L, Kb), generator=gen,
+                        dtype=torch.int32).to(dev)
+    wts = (torch.randint(0, 2, (L, Kb), generator=gen,
+                         dtype=torch.int32) * 4 - 2)
+    wts[:, Kb // 2:] = 0
+    wts[::5] = 0
+    wts = wts.to(dev)
+    main = (acc, dmajor, idx, wts)
+    oor_idx, oor_w = idx[:2].clone(), wts[:2].clone()
+    oor_idx[0, :3] = torch.tensor([-5, D + 100, 2 ** 31 - 1])
+    oor_w[0, :3] = torch.tensor([2, -2, 2])
+    oor_idx[1, -1], oor_w[1, -1] = -(2 ** 31), -2
+    timed = {f"L={n},nnz={k}": _delta_fill(n, k, cfg, dmajor, gen,
+                                           pad_row=(n > 1 and k == 1))
+             for n in (1, L) for k in (Kb, 1)}
+    cases = {"main(L=16,budget=2048)": main,
+             "ragged(M=1001)": (acc[:, :1001].contiguous(),
+                                dmajor[:, :1001].contiguous(), idx, wts),
+             "L=1, all padding": _delta_fill(1, 0, cfg, dmajor, gen),
+             "indices out of range, weighted": (acc[:2].contiguous(), dmajor,
+                                                oor_idx, oor_w),
+             "K=1": (acc, dmajor, idx[:, :1].contiguous(),
+                     torch.where(wts[:, :1] == 0, 2, wts[:, :1]).contiguous()),
+             "K=1001": (acc, dmajor, idx[:, :1001].contiguous(),
+                        torch.where(wts[:, :1001] == 0, 2,
+                                    wts[:, :1001]).contiguous())}
+    cases.update(timed)
+    errs = {label: _delta_check(label, args) for label, args in cases.items()}
+    by_shape = {label: _delta_time(label, args, rates)
+                for label, args in timed.items()}
+    by_shape["main(L=16,budget=2048)"] = _delta_time(
+        "main(L=16,budget=2048)", main, rates)
+    first = by_shape["L=1,nnz=2048"]
+    return dict(name="delta_update", route="cuda",
+                source="src/repro_torch/kernels/csrc/delta_update.cu",
+                replaces="src/repro/kernels/delta_update.py:37",
+                max_abs_err=max(errs.values()), library_ms=None,
+                main_shape="L=1,nnz=2048",
+                **{k: first[k] for k in ("ms", "call_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                by_shape=by_shape)
+
+
+def _delta_fill_counts(cfg, frames, res):
+    """Weighted entries of the ``delta_update`` row each valid proposal of
+    an engine run launches: ``delta_indices`` weights the first
+    min(|Delta|, budget) entries, and the telemetry keeps |Delta|. Padding
+    proposals launch too, but their |Delta| is not kept (it reads 0)."""
+    counts = [np.minimum(tel.delta_count.cpu().numpy()[fr[t].valid],
+                         cfg.delta_budget)
+              for s, fr in enumerate(frames)
+              for t, (_, tel) in enumerate(res[f"cam{s}"])]
+    return torch.from_numpy(np.concatenate(counts))
+
+
+def _delta_median(cfg, dmajor, counts, report, rates):
+    """Print the distribution of weighted entries per row over the serial
+    switch run's proposals' delta_update launches, then check and time the
+    kernel at the median fill at L = 1 (the launch shape of that run, now
+    the report's main shape) and L = 16."""
+    if counts.numel() == 0:
+        raise AssertionError("serial switch run: no proposal")
+    c = counts.to(torch.float64)
+    q = [int(torch.quantile(c, p)) for p in (0.0, 0.1, 0.25, 0.5, 0.75,
+                                              0.9, 1.0)]
+    med = q[3]
+    log(f"[delta fill] serial switch run: {counts.numel()} proposals' rows "
+        f"of {cfg.delta_budget} budget entries; weighted entries per row "
+        f"min/p10/p25/median/p75/p90/max {q}; rows with no weighted entry "
+        f"{int((counts == 0).sum())}, rows with the whole budget weighted "
+        f"{int((counts == cfg.delta_budget).sum())}")
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    entry = report["delta_update"]
+    for n in (1, STREAMS):
+        label = f"L={n},nnz={med} (median)"
+        args = _delta_fill(n, med, cfg, dmajor, gen)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   _delta_check(label, args))
+        entry["by_shape"][label] = _delta_time(label, args, rates)
+    main = entry["by_shape"][f"L=1,nnz={med} (median)"]
+    entry.update(main_shape=f"L=1,nnz={med} (median)",
+                 **{k: main[k] for k in ("ms", "call_ms", "plain_ms",
+                                         "bound_ms", "bound_by")})
+    entry["fill_quantiles"] = q
+
+
 def _encode_bounds(n, d, D, out_bytes):
     """(3xTF32 bound, FP32-FMA bound) of sign(z @ R.T) for n rows: z and R
     read once, the codes written once; the 3xTF32 product is three TF32
@@ -422,7 +655,6 @@ def _encode_kernels(cfg, gen, dev, N):
     version, the FP32 product torch.matmul(z, R.T) (TF32 off) and both
     bounds."""
     from repro_torch.core import hdc
-    from repro_torch.kernels import build
     from repro_torch.kernels import fused_window as fw
     from repro_torch.kernels import ref
     from repro_torch.kernels import sign_project as sp
@@ -453,12 +685,7 @@ def _encode_kernels(cfg, gen, dev, N):
         shapes["ragged(N=37,D=8160), zero row 5, NaN row 9"] = (zr, Rr)
         errs = {}
         for label, (zz, RR) in shapes.items():
-            before = build.LAUNCHES[name]
-            got = k["fn"](zz, RR)
-            if build.LAUNCHES[name] != before + 1:
-                raise AssertionError(f"{name} {label}: "
-                                     f"{build.LAUNCHES[name] - before} "
-                                     f"launches for one call")
+            got = _one_launch(name, lambda: k["fn"](zz, RR))
             want = k["plain"](zz, RR)
             torch.cuda.synchronize()
             rule = k["rule"](zz, RR, got, want)
@@ -668,7 +895,7 @@ def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
     the lowering encodings, which must be one of ``lowerings`` (tuples of
     fused_mode, decide_mode, bucket tier or None for any compact tier),
     over the first ``n_windows`` steps (all by default). Returns the
-    per-window encodings."""
+    per-step encodings and the engine's per-stream results."""
     base_res, base_states = base
     eng, res, states, _words, launches = _serve_card(
         cfg, sys_, frames, report, label, steps=n_windows, **engine_kw)
@@ -691,7 +918,7 @@ def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
     log(f"[{label}] == card prefix engine in every field; lowering "
         f"(fused, decide, tier) per step: {seen}; path mix after the first "
         f"windows: {_path_mix(frames, res)}")
-    return seen
+    return seen, res
 
 
 def phase_evaluate(cfg, world, sys_):
@@ -1094,7 +1321,9 @@ def main() -> int:
     cfg = torr_edge()
     world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim, n_tasks=5)
     sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
-    report = phase_kernels(cfg, sys_.im.to("cuda"))
+    rates = Rates()
+    im_cuda = sys_.im.to("cuda")
+    report = phase_kernels(cfg, im_cuda, rates)
     done("kernels")
 
     served = edge_windows(world, cfg, STREAMS, WINDOWS, cfg.N_max)
@@ -1112,18 +1341,21 @@ def main() -> int:
     switch = (FUSED_SWITCH, DECIDE_NONE, 0)
     compact = (FUSED_COMPACT, DECIDE_BATCHED, None)
     prefix = (FUSED_PREFIX, DECIDE_NONE, 0)
-    phase_lowering(cfg, sys_, served, report, "serial switch", base,
-                   ("fused_scores", "delta_update"), (switch,),
-                   n_windows=SERIAL_WINDOWS, serial=True)
+    _, res = phase_lowering(
+        cfg, sys_, served, report, "serial switch", base,
+        ("fused_scores", "delta_update"), (switch,),
+        n_windows=SERIAL_WINDOWS, serial=True)
+    _delta_median(cfg, im_cuda.dmajor, _delta_fill_counts(cfg, served, res),
+                  report, rates)
     full_tier = (FUSED_COMPACT, DECIDE_BATCHED, STREAMS * cfg.N_max)
     compact_kernels = ("packed_hamming_batched", "bank_prefix_hamming")
     for traffic, b, frames in (("served", base, served),
                                ("reuse", base_reuse, reuse)):
         phase_lowering(cfg, sys_, frames, report, f"compact, {traffic}", b,
                        compact_kernels, (full_tier,), fused="compact")
-        seen = phase_lowering(cfg, sys_, frames, report, f"auto, {traffic}",
-                              b, ("bank_prefix_hamming",),
-                              (prefix, compact), fused="auto")
+        seen, _ = phase_lowering(
+            cfg, sys_, frames, report, f"auto, {traffic}", b,
+            ("bank_prefix_hamming",), (prefix, compact), fused="auto")
         if traffic == "reuse" and not any(e[0] == FUSED_COMPACT
                                           for e in seen):
             raise AssertionError("auto never reached the compact lowering "

@@ -44,6 +44,7 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}     # name -> its C launch function
 
 
 def nvcc_path() -> str:
@@ -108,9 +109,12 @@ def build_all() -> dict[str, str]:
 
 def launch_fn(name: str):
     """The C launch function of kernel ``name``, building it if needed."""
-    if name not in _libs:
-        build_all()
-    return getattr(_libs[name], f"{name}_launch")
+    fn = _fns.get(name)
+    if fn is None:
+        if name not in _libs:
+            build_all()
+        fn = _fns[name] = getattr(_libs[name], f"{name}_launch")
+    return fn
 
 
 def reset_launches() -> None:
@@ -141,8 +145,15 @@ def launch(name: str, device, *args) -> None:
 
     fn = launch_fn(name)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    # the raw handle of the device's current stream (what Triton's launcher
+    # reads); the device is switched only when it is not the current one
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     LAUNCHES[name] += 1

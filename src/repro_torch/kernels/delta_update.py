@@ -4,10 +4,11 @@
 The ASIC pops flipped-bit indices from a Delta-FIFO and touches only those
 item-memory columns; the TPU kernel scalar-prefetches the index array and
 streams one D-major row per grid step. The CUDA kernel
-(``csrc/delta_update.cu``) stages each row's indices and weights in shared
-memory and reads only the flipped rows of ``dmajor``, so O(|Delta| * M)
-bytes move, never O(D * M). Padding entries carry weight 0 (and index 0)
-and are skipped.
+(``csrc/delta_update.cu``) deals each row's budget to a cluster of blocks,
+compacts the weighted entries in shared memory and reads only their rows
+of ``dmajor``, so O(|Delta| * M) bytes move, never O(D * M); the blocks'
+partial sums meet in distributed shared memory within the one launch.
+Padding entries carry weight 0 (and index 0) and are skipped.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ def delta_update(acc: torch.Tensor, dmajor: torch.Tensor, idx: torch.Tensor,
 
     ``acc`` int32 [..., M] (the leading axes, if any, batch rows: JAX's
     vmap over streams), ``dmajor`` int8 [D, M], ``idx`` int32
-    [..., budget] (clamped to [0, D), as JAX's gather clamps) and
+    [..., budget] (clamped to [0, D); JAX's gather clamps an index past the
+    end the same way and wraps a negative one from the end) and
     ``weight`` int32 [..., budget] in {-2, 0, +2}."""
     name = "delta_update"
     if acc.dtype != torch.int32 or idx.dtype != torch.int32 or \

@@ -14,7 +14,8 @@ proposals per window. Each pair runs 2 untimed warm-up steps, 3 steps timed
 on the host clock around ``sync()``, then one more step under
 ``torch.profiler``, and prints one JSON object: the wall time per step,
 windows/s, the device busy time and idle share of the profiled step, its
-kernel launches, and the kernels and host ops that take the most time,
+kernel launches, the kernels and host ops that take the most time, and the
+launches and device time of each of the port's hand-written kernels,
 after the card's name and power limit. Needs a GPU.
 """
 from __future__ import annotations
@@ -35,6 +36,13 @@ from ..serving import tood_pipelines as tp
 from ..serving.stream_engine import StreamEngine
 
 STREAMS, WARMUP, STEPS, TOP = 16, 2, 3, 12
+# kernel (or kernels) -> the names of its device functions in csrc/
+PORT_KERNELS = {
+    name: (f"{name}_kernel",) for name in (
+        "bank_prefix_hamming", "packed_hamming_batched", "fused_scores",
+        "delta_update")}
+PORT_KERNELS["sign_project_pack, sign_project"] = ("sign_wgmma_kernel",
+                                                   "sign_mma_kernel")
 LOWERINGS = {"prefix": {}, "serial": dict(serial=True),
              "compact": dict(fused="compact")}
 
@@ -127,6 +135,14 @@ def profile(cfg, sys_, world, lowering: str, traffic: str) -> dict:
             {"name": e.key[:80], "count": e.count,
              "ms": e.self_device_time_total / 1e3}
             for e in top[:TOP]],
+        # launches and device ms in the step of the port's hand-written
+        # kernels, found by their device functions' names
+        "port_kernels": {
+            name: {"count": sum(e.count for e in mine),
+                   "ms": sum(e.self_device_time_total for e in mine) / 1e3}
+            for name, fns in PORT_KERNELS.items()
+            for mine in [[e for e in kernels
+                          if any(f in e.key for f in fns)]]},
         "top_host_ops": [
             {"name": e.key[:80], "count": e.count,
              "self_cpu_ms": e.self_cpu_time_total / 1e3}
