@@ -6,8 +6,10 @@ Phases (any failed check raises, and the script exits non-zero without
 printing its result line):
 
   1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-     and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all at once);
+     the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
+     (one ``nvcc`` per source, all at once), and the tensor-core probe of
+     ``perf/mma_probe.py`` (``[probe]`` lines: the int8 and 1-bit product
+     routes the hamming kernels can take, their rates on this card);
   2. every kernel against its plain PyTorch version on the card, at the
      serving paths' shapes and at reduced, ragged and tied ones (bit-equal;
      the two encodes under their agreement rule with no decided code
@@ -24,7 +26,15 @@ printing its result line):
      ways, ``fused_scores`` beside its int8 tensor-core bound (its
      ``bound_ms``: the card's peak rate for this work), the popcount bound
      and torch._int_mm on the unpacked +-1 codes (a reference, not the
-     library column: it reads 8x the bytes);
+     library column: it reads 8x the bytes); ``bank_prefix_hamming`` and
+     ``packed_hamming_batched`` the same way at their launch shapes (the
+     step's S x N_max rows and the ladder's reduced plans; each decide
+     table on its own), their ``bound_ms`` at the card's 1-bit
+     tensor-core rate (their products' route; the int8 and popcount
+     bounds beside it) and PyTorch's fill of the output beside them,
+     bit-equal there and on adversarial inputs (all
+     ones against all zeros, equal rows, words zeroed on both sides,
+     ragged N, M and W); the compact bucket tiers after phase 5;
   3. serving at the edge config (``torr_edge()``) on the multi-stream
      step's default (prefix) lowering: 16 streams in 16 slots, 4 windows
      each of the traffic ``launch/serve.py`` serves (``simulate_sequence``
@@ -45,7 +55,9 @@ printing its result line):
      ``packed_hamming_batched`` decide tables and the bucket scan) on both
      traffics, each bit-equal to the card's prefix engine of phase 3 or 4
      in every field but the lowering's own telemetry encodings; on the
-     reuse traffic auto must reach the compact lowering;
+     reuse traffic auto must reach the compact lowering; every bucket
+     tier those runs' telemetry shows is then checked and timed on
+     ``bank_prefix_hamming``;
   6. ``evaluate_task`` for the five TOOD tasks at the edge config on the
      card (AP@0.5 of TorR, dense and naive HDC, and TorR's path mix), one
      task's per-frame scores and telemetry equal to the same run on the CPU
@@ -98,6 +110,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_TF32_S = 495e12        # dense, on the tensor cores
 PEAK_INT8_S = 1979e12       # dense int8 TOP/s, on the tensor cores
+# 1-bit products on the tensor cores (b1 .and.popc), counted as int8 ops
+# are, 64 a 32-bit word pair: the data sheet gives no rate; 8x the int8
+# peak, which wgmma b1 reaches on an H100 (perf/mma_probe.py: 248.2 T word
+# pairs/s against the int8 peak's 30.9 T)
+PEAK_B1_S = 8 * PEAK_INT8_S
 # Integer issue rates of compute capability 9.0, per SM per clock (CUDA C++
 # Programming Guide, throughput table of the arithmetic instructions): 64
 # 32-bit integer adds, multiply-adds or bitwise ops, 16 population counts
@@ -198,6 +215,7 @@ def phase_card():
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.perf import mma_probe
 
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -207,6 +225,7 @@ def phase_build():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+    mma_probe.probe(log)
 
 
 class Rates:
@@ -229,14 +248,6 @@ class Rates:
         return ops / (self.sms * INT32_PER_CLK * self.clk)
 
 
-def _entry(name, source, replaces, err, ms, plain_ms, b, library_ms=None):
-    log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms} ms, bound {b[0]:.4f} ms ({b[1]})")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                bound_by=b[1], library_ms=library_ms)
-
-
 def _check(name, label, got, want):
     """Bit-equality of kernel outputs (a tensor or a tuple) with the plain
     version's; returns the largest absolute difference."""
@@ -253,10 +264,7 @@ def _check(name, label, got, want):
 
 def phase_kernels(cfg, im_cuda, rates):
     """Every kernel vs its plain version on the card, then timed."""
-    from repro_torch.core import aligner, item_memory
-    from repro_torch.kernels import fused_window as fw
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import xnor_popcount_sim as xps
+    from repro_torch.core import aligner
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(11)
@@ -266,85 +274,258 @@ def phase_kernels(cfg, im_cuda, rates):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
                              dtype=torch.int32).to(dev)
 
-    # bank_prefix_hamming: the hoisted S x N_max batch at full precision,
-    # reduced plans through the column selection — (cap=4, planes=2), the
-    # ladder's (8, 1) (pmajor blocks, 64 words) and (1, 1) (8 words) — and
-    # a ragged shape
-    S = STREAMS
-    N, W = S * cfg.N_max, cfg.words
-    q = words(N, W)
+    N = STREAMS * cfg.N_max
     im_w = im_cuda.packed
-    M = im_w.shape[0]
 
     def plan_cols(qq, cap, planes):
         return tuple(x.contiguous() for x in aligner._plan_columns_bank_major(
             qq, im_cuda, cap, planes, cfg))
 
-    for label, (qq, hh, cap) in {
+    report["bank_prefix_hamming"] = _prefix_kernel(cfg, im_w, words,
+                                                   plan_cols, rates)
+    report["fused_scores"] = _fused_scores_kernel(cfg, im_w, words,
+                                                  plan_cols, rates)
+    report["delta_update"] = _delta_update_kernel(cfg, im_cuda.dmajor, gen,
+                                                  rates)
+    report["packed_hamming_batched"] = _batched_kernel(cfg, words, dev,
+                                                       rates)
+    report.update(_encode_kernels(cfg, gen, dev, N))
+    return report
+
+
+def _adversarial(words, n, m, w):
+    """Packed inputs on which a wrong decomposition shows: all ones
+    against all zeros (hamming 32 w at the last boundary), equal rows
+    (0), and random rows with every third word zeroed on both sides (a
+    plan's disabled words), each [n, w] x [m, w]."""
+    q, h = words(n, w), words(m, w)
+    ones = torch.full_like(q, -1)
+    zmask = (torch.arange(w, device=q.device) % 3 == 1)
+    return {
+        "all ones x all zeros": (ones, torch.zeros_like(h)),
+        "equal rows": (q, q[:m].clone() if m <= n else
+                       q.repeat(-(-m // n), 1)[:m].contiguous()),
+        "masked words zeroed on both sides": (torch.where(zmask, 0, q),
+                                              torch.where(zmask, 0, h)),
+    }
+
+
+def _hamming_time(name, label, fn, plain, moved, pairs, rates, int_mm):
+    """One launch shape of a hamming kernel timed two ways (a CUDA graph of
+    20 calls; one call with its host time) beside the plain version, its
+    bound at the card's 1-bit tensor-core rate, the kernels' route
+    (``bound_ms``: 64 operations a word pair at ``PEAK_B1_S``, against the
+    bytes), the int8 tensor-core bound (``bound_int8_ms``: the same count
+    at 1,979 TOP/s), the popcount bound (``bound_popc_ms``), PyTorch's
+    fill of the output (``fill_ms``: writing it alone, device time) and
+    ``int_mm``, torch._int_mm on the unpacked +-1 codes over the full
+    width (a reference: 8x the bytes, not the same function; None below
+    its 17-row minimum)."""
+    b = bound(moved, 64 * pairs / PEAK_B1_S)
+    b8 = bound(moved, 64 * pairs / PEAK_INT8_S)
+    bp = bound(moved, rates.popc_s(pairs))
+    out = fn()
+    t = dict(ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+             bound_ms=b[0], bound_by=b[1], bound_int8_ms=b8[0],
+             bound_int8_by=b8[1], bound_popc_ms=bp[0], bound_popc_by=bp[1],
+             fill_ms=device_ms(out.zero_), int_mm_ms=None,
+             int_mm_call_ms=None)
+    if int_mm is not None:
+        t.update(int_mm_ms=device_ms(int_mm), int_mm_call_ms=cuda_ms(int_mm))
+    ref_txt = ("n/a" if int_mm is None else
+               f"{t['int_mm_ms']:.4f} ms ({t['int_mm_call_ms']:.4f})")
+    log(f"[time] {name} {label}: kernel {t['ms']:.4f} ms on the device "
+        f"({t['call_ms']:.4f} ms for one call with its host time), plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms 1-bit tensor "
+        f"cores ({t['bound_by']}), {t['bound_int8_ms']:.4f} ms int8 "
+        f"({t['bound_int8_by']}), {t['bound_popc_ms']:.4f} ms popcount "
+        f"({t['bound_popc_by']}); kernel / bound "
+        f"{t['ms'] / t['bound_ms']:.2f}, / int8 bound "
+        f"{t['ms'] / t['bound_int8_ms']:.2f}, / popcount bound "
+        f"{t['ms'] / t['bound_popc_ms']:.2f}; fill of the output "
+        f"{t['fill_ms']:.4f} ms; reference torch._int_mm on "
+        f"unpacked +-1 int8 codes {ref_txt}")
+    return t
+
+
+def _pm1_int_mm(q, h):
+    """torch._int_mm of the +-1 codes of q [n, w] and h [m, w] (None where
+    torch._int_mm does not take the shape), checked against the hamming
+    of the full width: dot_pm1 = 32 w - 2 hamming."""
+    from repro_torch.core import hdc
+    from repro_torch.kernels import ref
+
+    n, w = q.shape
+    if n <= 16 or (32 * w) % 8 or h.shape[0] % 8:
+        return None
+    q_pm1 = hdc.unpack_bits(q, 32 * w)
+    h_pm1 = hdc.unpack_bits(h, 32 * w).T
+
+    def fn():
+        return torch._int_mm(q_pm1, h_pm1)
+
+    if not torch.equal(fn(), 32 * w - 2 * ref.packed_hamming_ref(q, h)):
+        raise AssertionError("torch._int_mm of the +-1 codes != 32 W - 2 H")
+    return fn
+
+
+def _prefix_kernel(cfg, im_w, words, plan_cols, rates):
+    """bank_prefix_hamming against its plain version at the hoisted
+    S x N_max batch (the prefix step's launch, and the compact step's on
+    overflow or at its no-savings tier) at full precision, at the
+    ladder's reduced plans through the column selection -- (cap=4,
+    planes=2), (8, 1) (W = 64, cap = 8) and (1, 1) (W = 8, cap = 1) -- at
+    ragged shapes (W = 40 with cap 1, 5 and 8) and on the adversarial
+    inputs; then the step's launch and both reduced plans timed
+    (:func:`_hamming_time`). The compact tiers are timed after the compact
+    and auto runs (:func:`_prefix_tiers`)."""
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels import ref
+
+    name = "bank_prefix_hamming"
+    N, W, M = STREAMS * cfg.N_max, cfg.words, im_w.shape[0]
+    q = words(N, W)
+    cases = {
         "main": (q, im_w, cfg.B),
         "plan(planes=2,cap=4)": plan_cols(q, 4, 2) + (4,),
         "plan(8,1): W=64, cap=8": plan_cols(q, 8, 1) + (8,),
         "plan(1,1): W=8, cap=1": plan_cols(q, 1, 1) + (1,),
         "ragged(N=37,M=1000)": (words(37, W), im_w[:1000], cfg.B),
-    }.items():
+    }
+    for cap in (1, 5, 8):
+        cases[f"ragged(N=37,M=1001,W=40,cap={cap})"] = (
+            words(37, 40), words(1001, 40), cap)
+    # 32 W >= 65,536: the kernel stages 32-bit counts
+    cases["wide(N=37,M=45,W=2048,cap=8)"] = (words(37, 2048), words(45, 2048),
+                                             8)
+    for label, (a, b) in _adversarial(words, 45, 77, 40).items():
+        for cap in (1, 5, 8):
+            cases[f"{label}(N=45,M=77,W=40,cap={cap})"] = (a, b, cap)
+    errs = {}
+    for label, (qq, hh, cap) in cases.items():
         qq, hh = qq.contiguous(), hh.contiguous()
-        err = _check("bank_prefix_hamming", label,
-                     fw.bank_prefix_hamming(qq, hh, cap=cap),
-                     ref.bank_prefix_hamming_ref(qq, hh, cap=cap))
-        if label == "main":
-            main_err = err
-    # each input read once, the [N, M, cap] counts written once
-    report["bank_prefix_hamming"] = _entry(
-        "bank_prefix_hamming",
-        "src/repro_torch/kernels/csrc/bank_prefix_hamming.cu",
-        "src/repro/kernels/fused_window.py:253", main_err,
-        cuda_ms(lambda: fw.bank_prefix_hamming(q, im_w, cap=cfg.B)),
-        cuda_ms(lambda: ref.bank_prefix_hamming_ref(q, im_w, cap=cfg.B)),
-        bound(4 * (N * W + M * W + N * M * cfg.B), rates.popc_s(N * M * W)))
+        got = _one_launch(name, lambda: fw.bank_prefix_hamming(qq, hh,
+                                                               cap=cap))
+        errs[label] = _check(name, label, got,
+                             ref.bank_prefix_hamming_ref(qq, hh, cap=cap))
+    by_shape = {}
+    for label, (qq, hh, cap) in (
+            (f"step(N={N},W={W},cap={cfg.B})", cases["main"]),
+            (f"plan(8,1)(N={N},W=64,cap=8)", cases["plan(8,1): W=64, cap=8"]),
+            (f"plan(1,1)(N={N},W=8,cap=1)", cases["plan(1,1): W=8, cap=1"])):
+        by_shape[label] = _prefix_time(label, qq, hh, cap, rates)
+    main = by_shape[f"step(N={N},W={W},cap={cfg.B})"]
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/bank_prefix_hamming.cu",
+                replaces="src/repro/kernels/fused_window.py:253",
+                max_abs_err=max(errs.values()), library_ms=None,
+                main_shape=f"step(N={N},W={W},cap={cfg.B})",
+                **{k: main[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_int8_ms", "bound_popc_ms", "int_mm_ms")},
+                by_shape=by_shape)
 
-    report["fused_scores"] = _fused_scores_kernel(cfg, im_w, words,
-                                                  plan_cols, rates)
-    report["delta_update"] = _delta_update_kernel(cfg, im_cuda.dmajor, gen,
-                                                  rates)
 
-    # packed_hamming_batched: the batched decide pass's two tables per
-    # step, proposals vs cache snapshot [16, 128] x [16, 8] and proposals
-    # vs proposals [16, 128] x [16, 128], both also pre-masked by the
-    # ladder's (1, 1) plan (ops.masked_hamming_all zeroes disabled words),
-    # and a ragged shape
-    qb = words(S, cfg.N_max, W)
-    eb = words(S, cfg.K, W)
+def _prefix_time(label, q, h, cap, rates):
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels import ref
+
+    n, w = q.shape
+    m = h.shape[0]
+    # each input read once, the [n, m, cap] counts written once
+    return _hamming_time(
+        "bank_prefix_hamming", label,
+        lambda: fw.bank_prefix_hamming(q, h, cap=cap),
+        lambda: ref.bank_prefix_hamming_ref(q, h, cap=cap),
+        4 * (n * w + m * w + n * m * cap), n * m * w, rates,
+        _pm1_int_mm(q, h))
+
+
+def _prefix_tiers(cfg, im_w, tiers, report, rates):
+    """bank_prefix_hamming checked and timed at every compact bucket tier
+    the compact and auto runs launched (their ``bucket_tier`` telemetry):
+    a bucket of ``tier`` rows against the item memory at full precision."""
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    entry = report["bank_prefix_hamming"]
+    log(f"[tiers] compact bucket tiers launched by the compact and auto "
+        f"runs: {sorted(tiers)}")
+    W = cfg.words
+    for tier in sorted(tiers):
+        q = torch.randint(-2 ** 31, 2 ** 31 - 1, (tier, W), generator=gen,
+                          dtype=torch.int32).to(im_w.device)
+        label = f"compact tier(N={tier},W={W},cap={cfg.B})"
+        entry["max_abs_err"] = max(entry["max_abs_err"], _check(
+            "bank_prefix_hamming", label,
+            fw.bank_prefix_hamming(q, im_w, cap=cfg.B),
+            ref.bank_prefix_hamming_ref(q, im_w, cap=cfg.B)))
+        entry["by_shape"][label] = _prefix_time(label, q, im_w, cfg.B, rates)
+
+
+def _batched_kernel(cfg, words, dev, rates):
+    """packed_hamming_batched against its plain version: the batched
+    decide pass's two tables of a step, proposals vs cache snapshot
+    [16, 128] x [16, 8] and proposals vs proposals [16, 128] x [16, 128],
+    both also pre-masked by the ladder's (1, 1) plan
+    (ops.masked_hamming_all zeroes disabled words), ragged shapes (W = 40,
+    M = 1 and 5, N = 37), the 2-D form, and the adversarial inputs; then
+    each table timed on its own (:func:`_hamming_time`; the int8
+    reference is S calls of torch._int_mm, one a stream)."""
+    from repro_torch.core import item_memory
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xnor_popcount_sim as xps
+
+    name = "packed_hamming_batched"
+    S, Nw, K, W = STREAMS, cfg.N_max, cfg.K, cfg.words
+    qb = words(S, Nw, W)
+    eb = words(S, K, W)
     wm = item_memory.plan_word_mask(cfg, 1, 1, dev)
     qm, em = torch.where(wm, qb, 0), torch.where(wm, eb, 0)
-    for label, (qq, hh) in {
-        f"snapshot([{S},{cfg.N_max}]x[{S},{cfg.K}])": (qb, eb),
-        f"proposals([{S},{cfg.N_max}]x[{S},{cfg.N_max}])": (qb, qb),
+    snap, prop = f"snapshot([{S},{Nw}]x[{S},{K}])", \
+        f"proposals([{S},{Nw}]x[{S},{Nw}])"
+    cases = {
+        snap: (qb, eb),
+        prop: (qb, qb),
         "snapshot, plan(1,1) mask": (qm, em),
         "proposals, plan(1,1) mask": (qm, qm),
         "ragged([3,37]x[3,5],W=40)": (words(3, 37, 40), words(3, 5, 40)),
-    }.items():
-        err = _check("packed_hamming_batched", label,
-                     xps.packed_hamming_batched(qq, hh),
-                     ref.packed_hamming_ref(qq, hh))
-        if label.startswith("proposals"):
-            main_err = err
-
-    def both(fn):
-        return lambda: (fn(qb, eb), fn(qb, qb))
-
-    pairs = S * cfg.N_max * (cfg.K + cfg.N_max) * W
-    report["packed_hamming_batched"] = _entry(
-        "packed_hamming_batched",
-        "src/repro_torch/kernels/csrc/packed_hamming_batched.cu",
-        "src/repro/kernels/xnor_popcount_sim.py:130", main_err,
-        cuda_ms(both(xps.packed_hamming_batched)),
-        cuda_ms(both(ref.packed_hamming_ref)),
-        bound(4 * (S * cfg.N_max * W + S * cfg.K * W + S * cfg.N_max * W
-                   + S * cfg.N_max * (cfg.K + cfg.N_max)),
-              rates.popc_s(pairs)))
-
-    report.update(_encode_kernels(cfg, gen, dev, N))
-    return report
+        "ragged([3,37]x[3,1],W=40)": (words(3, 37, 40), words(3, 1, 40)),
+        "ragged([2,37]x[2,8],W=8)": (words(2, 37, 8), words(2, 8, 8)),
+        "ragged([2,37]x[2,45],W=13)": (words(2, 37, 13), words(2, 45, 13)),
+        "wide([2,37]x[2,45],W=2048)": (words(2, 37, 2048),
+                                       words(2, 45, 2048)),
+        "2-D [37,40]x[77,40]": (words(37, 40), words(77, 40)),
+    }
+    for label, (a, b) in _adversarial(words, 37, 8, 40).items():
+        cases[f"{label}([1,37]x[1,8],W=40)"] = (a[None], b[None])
+    errs = {label: _check(name, label,
+                          _one_launch(name, lambda: xps.packed_hamming_batched(
+                              qq.contiguous(), hh.contiguous())),
+                          ref.packed_hamming_ref(qq.contiguous(),
+                                                 hh.contiguous()))
+            for label, (qq, hh) in cases.items()}
+    by_shape = {}
+    for label in (snap, prop):
+        qq, hh = cases[label]
+        m = hh.shape[1]
+        mms = [_pm1_int_mm(qq[s], hh[s]) for s in range(S)]
+        by_shape[label] = _hamming_time(
+            name, label, lambda: xps.packed_hamming_batched(qq, hh),
+            lambda: ref.packed_hamming_ref(qq, hh),
+            4 * (S * Nw * W + S * m * W + S * Nw * m), S * Nw * m * W, rates,
+            None if None in mms else (lambda: [f() for f in mms]))
+    main = by_shape[prop]
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/packed_hamming_batched.cu",
+                replaces="src/repro/kernels/xnor_popcount_sim.py:130",
+                max_abs_err=max(errs.values()), library_ms=None,
+                main_shape=prop,
+                **{k: main[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_int8_ms", "bound_popc_ms", "int_mm_ms")},
+                by_shape=by_shape)
 
 
 def _one_launch(name, fn):
@@ -485,7 +666,9 @@ def _delta_bound(idx, w, M, D, rates):
     acc in and out; operations: one multiply-add per nonzero entry and
     column on the 64-wide integer pipe."""
     nz = w != 0
-    rows = int(torch.unique(idx[nz].clamp(0, D - 1)).numel())
+    ix = idx[nz]
+    rows = int(torch.unique(torch.where(ix < 0, ix + D, ix).clamp(0, D - 1))
+               .numel())
     L, K = idx.shape
     return bound(rows * M + 8 * L * K + 8 * L * M,
                  rates.int32_s(int(nz.sum()) * M))
@@ -542,8 +725,9 @@ def _delta_update_kernel(cfg, dmajor, gen, rates):
     one weighted entry (at L = 16 the last row all padding), all timed; the
     L = 16 input of the earlier slices (half of each row padding, every
     fifth row all padding; timed too), a ragged M (no vector loads), an
-    all-padding row, indices out of range with weight (clamped to [0, D)
-    as JAX's gather clamps), K = 1 and K = 1001 (not a multiple of the
+    all-padding row, indices out of range with weight (a negative one
+    wrapped from the end once, then every one clamped to [0, D), as JAX's
+    gather takes them: -1, -5, -D, -D - 3, D + 6 among them), K = 1 and K = 1001 (not a multiple of the
     kernel's budget split). The fill that the serial switch run's launches
     see most is timed after that run (:func:`_delta_median`)."""
     dev = dmajor.device
@@ -562,6 +746,11 @@ def _delta_update_kernel(cfg, dmajor, gen, rates):
     oor_idx[0, :3] = torch.tensor([-5, D + 100, 2 ** 31 - 1])
     oor_w[0, :3] = torch.tensor([2, -2, 2])
     oor_idx[1, -1], oor_w[1, -1] = -(2 ** 31), -2
+    neg_idx, neg_w = idx[:2].clone(), wts[:2].clone()
+    neg_idx[0, :5] = torch.tensor([-1, -5, -D, -D - 3, D + 6])
+    neg_w[0, :5] = torch.tensor([2, -2, 2, -2, 2])
+    neg_idx[1, -5:] = torch.tensor([-1, -5, -D, -D - 3, D + 6])
+    neg_w[1, -5:] = torch.tensor([-2, 2, -2, 2, -2])
     timed = {f"L={n},nnz={k}": _delta_fill(n, k, cfg, dmajor, gen,
                                            pad_row=(n > 1 and k == 1))
              for n in (1, L) for k in (Kb, 1)}
@@ -571,6 +760,8 @@ def _delta_update_kernel(cfg, dmajor, gen, rates):
              "L=1, all padding": _delta_fill(1, 0, cfg, dmajor, gen),
              "indices out of range, weighted": (acc[:2].contiguous(), dmajor,
                                                 oor_idx, oor_w),
+             "negative indices -1, -5, -D, -D-3 and D+6, weighted": (
+                 acc[:2].contiguous(), dmajor, neg_idx, neg_w),
              "K=1": (acc, dmajor, idx[:, :1].contiguous(),
                      torch.where(wts[:, :1] == 0, 2, wts[:, :1]).contiguous()),
              "K=1001": (acc, dmajor, idx[:, :1001].contiguous(),
@@ -1349,17 +1540,22 @@ def main() -> int:
                   report, rates)
     full_tier = (FUSED_COMPACT, DECIDE_BATCHED, STREAMS * cfg.N_max)
     compact_kernels = ("packed_hamming_batched", "bank_prefix_hamming")
+    tiers = set()
     for traffic, b, frames in (("served", base, served),
                                ("reuse", base_reuse, reuse)):
-        phase_lowering(cfg, sys_, frames, report, f"compact, {traffic}", b,
-                       compact_kernels, (full_tier,), fused="compact")
+        seen, _ = phase_lowering(cfg, sys_, frames, report,
+                                 f"compact, {traffic}", b, compact_kernels,
+                                 (full_tier,), fused="compact")
+        tiers.update(e[2] for e in seen if e[0] == FUSED_COMPACT)
         seen, _ = phase_lowering(
             cfg, sys_, frames, report, f"auto, {traffic}", b,
             ("bank_prefix_hamming",), (prefix, compact), fused="auto")
+        tiers.update(e[2] for e in seen if e[0] == FUSED_COMPACT)
         if traffic == "reuse" and not any(e[0] == FUSED_COMPACT
                                           for e in seen):
             raise AssertionError("auto never reached the compact lowering "
                                  "on the reuse traffic")
+    _prefix_tiers(cfg, im_cuda.packed, tiers, report, rates)
     done("lowerings (serial switch, compact, auto)")
     phase_evaluate(cfg, world, sys_)
     done("evaluate")

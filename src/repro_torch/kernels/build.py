@@ -36,7 +36,7 @@ SIGNATURES = {
     "sign_project_pack": (_P, _P, _P, _I, _I, _I, _P),
     "fused_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "delta_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "packed_hamming_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "packed_hamming_batched": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sign_project": (_P, _P, _P, _I, _I, _I, _P),
 }
 

@@ -4,9 +4,9 @@
 // (body _kernel, scalar-prefetched indices). For each of L rows:
 //   out[l, m] = acc[l, m] + sum_k w[l, k] * dmajor[idx[l, k], m]
 // with dmajor the int8 D-major item memory (+-1) and w in {-2, 0, +2}
-// (0 = padding). Indices are clamped to [0, D), as the plain version
-// (kernels/ref.py) clamps them; JAX's gather clamps an index past the end
-// the same way but wraps a negative one from the end (no path makes one).
+// (0 = padding). An index is taken as JAX's gather and the plain version
+// (kernels/ref.py) take it: a negative one wraps from the end once
+// (idx + D), then it clamps to [0, D) (no path makes one out of range).
 //
 // What bounds it on the H100: the work is a gather of whole dmajor rows.
 // The serial switch step and run_torr launch it with L = 1 row (one
@@ -133,7 +133,8 @@ delta_update_kernel(const int32_t* __restrict__ acc,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (wk[h] != 0) {
-        is[pos[h]] = min(max(ik[h], 0), D - 1);
+        const int ix = ik[h] < 0 ? ik[h] + D : ik[h];   // wrap, then clamp
+        is[pos[h]] = min(max(ix, 0), D - 1);
         ws[pos[h]] = wk[h];
       }
     }

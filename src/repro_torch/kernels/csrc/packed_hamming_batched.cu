@@ -1,4 +1,5 @@
-// Batched packed hamming table on Hopper (sm_90a).
+// Batched packed hamming table on Hopper (sm_90a), on the 1-bit tensor
+// cores.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/xnor_popcount_sim.py::packed_hamming_batched (body
@@ -11,90 +12,70 @@
 // operands beforehand.
 //
 // What bounds it on the H100: at the decide pass's shapes (S = 16, N = 128,
-// W = 256; M = K = 8 and M = N = 128) the inputs are 2 MB and 2.1 MB and the
-// tables 64 KB and 1 MB (about 0.6 us and 0.9 us at 3.35 TB/s), against
-// S*N*M*W = 4.2 M and 67 M word pairs, each a xor, a __popc and an add:
-// about 1 us and 16 us of popcounts on 132 SMs at 16 per SM per clock and
-// 1.98 GHz. The larger table is bound by operations, the snapshot table by
-// bytes.
+// W = 256; M = K = 8 and M = N = 128) the inputs are 2.1 MB and 4.2 MB and
+// the tables 64 KB and 1 MB (0.6 us and 1.6 us at 3.35 TB/s), against
+// S*N*M*W = 4.2 M and 67 M word pairs: 0.14 us and 2.2 us as int8-
+// equivalent tensor-core operations (64 a word pair at 1,979 TOP/s), 1 us
+// and 16 us as popcounts. Bytes bound both tables once the products run
+// on the tensor cores; at these sizes the launch and the latency of the
+// loads set the pace.
 //
-// What the design does about it: M may be as small as the cache depth
-// (K = 8), so a block never assumes 32 classes. A block owns tq query rows
-// of one batch, staged in shared memory; each warp takes one class row at a
-// time, its 32 lanes read 32 consecutive words (coalesced) and hold them in
-// a register while xor-ing them against all tq staged query rows (lane w
-// reads word w of each row: conflict-free), so each class row is read once
-// per block and reused tq times. Five xor-shuffles sum each row's lanes.
-// The wrapper picks tq as a divisor of N, so every block's rows are real.
+// What the design does about it: the mainloop of bank_prefix_hamming
+// (hamming_mma.cuh) with one bank (cap = 1): mma.sync m16n8k256 b1
+// .and.popc on the packed words, hamming = pq + ph - 2 dot, batch s on
+// blockIdx.z. Whole 256-word rows fit in a 4-stage ring of 64-word
+// stages, so every load of a block is in flight at once. At these sizes
+// a block's chain of loads and dependent steps sets the pace, so the
+// words are split across warps: the KW warps of an output tile take the
+// k-steps j, j + KW, ... of each stage and add their counts in warp order
+// through shared memory. Tiles, by M (the fastest of those timed on an
+// H100 while this design was chosen):
+//  * M <= 8 (the snapshot table): 16 queries x 8 classes a block, 8 warps
+//    on the words, 128 blocks at the step's shape (one warp on the words
+//    was slower);
+//  * M > 8 (the proposal table): 64 queries x 32 classes a block, 8
+//    tiles of 16 x 16 with 2 warps each (16 warps), 128 blocks (32 x 32
+//    with one warp a tile was slower).
+// Any S, N, M and W work (ragged edges are zero-filled and masked; W = 0
+// gives zeros).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hamming_mma.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int TQ_MAX = 8;  // query rows per block, at most
+// WQ, WC, NT, KC, STAGES, KW
+using Snapshot = ham::Tile<1, 1, 1, 64, 4, 8>;   // 16 x 8, 8 warps
+using Table = ham::Tile<4, 2, 2, 64, 4, 2>;      // 64 x 32, 16 warps
 
-__global__ void __launch_bounds__(WARPS * 32)
+// VEC: 16-byte copies (W % 8 == 0, aligned rows), else 4-byte ones;
+// NARROW: 16-bit staging (32 W < 65,536)
+template <class T, bool VEC, bool NARROW>
+__global__ void __launch_bounds__(T::THREADS)
 packed_hamming_batched_kernel(const uint32_t* __restrict__ q,
                               const uint32_t* __restrict__ im,
                               int32_t* __restrict__ out, int N, int M, int W,
-                              int tq) {
-  extern __shared__ uint32_t qs[];   // [tq][W]
-  const int s = blockIdx.y;
-  const int n0 = blockIdx.x * tq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t* qb = q + ((size_t)s * N + n0) * W;
-  for (int i = tid; i < tq * W; i += WARPS * 32) qs[i] = qb[i];
-  __syncthreads();
+                              int cap) {
+  ham::prefix_block<T, VEC, NARROW>(q, im, out, N, M, W, cap);
+}
 
-  const uint32_t* hb = im + (size_t)s * M * W;
-  int32_t* ob = out + ((size_t)s * N + n0) * M;
-  for (int m = warp; m < M; m += WARPS) {
-    const uint32_t* hr = hb + (size_t)m * W;
-    int part[TQ_MAX];
-#pragma unroll
-    for (int r = 0; r < TQ_MAX; ++r) part[r] = 0;
-    for (int w = lane; w < W; w += 32) {
-      const uint32_t h = hr[w];
-#pragma unroll
-      for (int r = 0; r < TQ_MAX; ++r) {
-        if (r < tq) part[r] += __popc(qs[r * W + w] ^ h);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < TQ_MAX; ++r) {
-      int v = part[r];
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0 && r < tq) ob[(size_t)r * M + m] = v;
-    }
-  }
+template <class T>
+cudaError_t launch(const void* q, const void* im, void* out, int S, int N,
+                   int M, int W, cudaStream_t s) {
+  return ham::launch<T, packed_hamming_batched_kernel<T, true, true>,
+                     packed_hamming_batched_kernel<T, true, false>,
+                     packed_hamming_batched_kernel<T, false, true>,
+                     packed_hamming_batched_kernel<T, false, false>>(
+      q, im, out, S, N, M, W, 1, s);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// q is [S, N, W], im [S, M, W], out [S, N, M]; tq must divide N.
+// q is [S, N, W], im [S, M, W], out [S, N, M].
 extern "C" int packed_hamming_batched_launch(const void* q, const void* im,
                                              void* out, int S, int N, int M,
-                                             int W, int tq, void* stream) {
-  if (S <= 0 || N <= 0 || M <= 0 || W < 0 || tq < 1 || tq > TQ_MAX ||
-      N % tq != 0 || S > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = (size_t)tq * (size_t)W * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_hamming_batched_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
-  }
-  const dim3 grid(N / tq, S);
-  packed_hamming_batched_kernel<<<grid, WARPS * 32, smem,
-                                  (cudaStream_t)stream>>>(
-      (const uint32_t*)q, (const uint32_t*)im, (int32_t*)out, N, M, W, tq);
-  return (int)cudaGetLastError();
+                                             int W, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(M <= 8 ? launch<Snapshot>(q, im, out, S, N, M, W, s)
+                      : launch<Table>(q, im, out, S, N, M, W, s));
 }

@@ -23,8 +23,8 @@ def delta_update(acc: torch.Tensor, dmajor: torch.Tensor, idx: torch.Tensor,
 
     ``acc`` int32 [..., M] (the leading axes, if any, batch rows: JAX's
     vmap over streams), ``dmajor`` int8 [D, M], ``idx`` int32
-    [..., budget] (clamped to [0, D); JAX's gather clamps an index past the
-    end the same way and wraps a negative one from the end) and
+    [..., budget] (as JAX's gather takes it: a negative index wraps from
+    the end once, then every index clamps to [0, D)) and
     ``weight`` int32 [..., budget] in {-2, 0, +2}."""
     name = "delta_update"
     if acc.dtype != torch.int32 or idx.dtype != torch.int32 or \

@@ -21,15 +21,13 @@ from ..core.item_memory import plane_sel
 from ..device import resolve_device
 from . import fused_window
 from .sign_project import sign_project as _sign_project
-from .xnor_popcount_sim import TQ_DEFAULT, fit_tile, packed_hamming_batched
+from .xnor_popcount_sim import packed_hamming_batched
 
 
 def _batched_hamming(q: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Shared dispatch for every packed-hamming consumer (full-path scans
-    and cache lookups): ``packed_hamming_batched`` with the default query
-    block clipped to a divisor of N. int32 [..., N, M]."""
-    return packed_hamming_batched(q.contiguous(), h.contiguous(),
-                                  tq=fit_tile(q.shape[-2], TQ_DEFAULT))
+    and cache lookups): ``packed_hamming_batched``. int32 [..., N, M]."""
+    return packed_hamming_batched(q.contiguous(), h.contiguous())
 
 
 def _plan_columns(arrays, banks: int, bank_words: int, planes: int | None,

@@ -63,9 +63,12 @@ def fused_scores_ref(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
 def delta_update_ref(acc: torch.Tensor, dmajor: torch.Tensor,
                      idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """int32 [..., M]: acc + sum_k weight[..., k] * dmajor[idx[..., k], :] —
-    ``delta_update.delta_update``. Indices clamp to [0, D), as JAX's
-    gather does."""
-    idx = torch.clamp(idx.to(torch.int64), 0, dmajor.shape[0] - 1)
+    ``delta_update.delta_update``. An index is taken as JAX's gather takes
+    it: a negative one wraps from the end once (-1 reads row D - 1), then
+    it clamps to [0, D) (-D - 3 reads row 0, D + 6 row D - 1)."""
+    D = dmajor.shape[0]
+    idx = idx.to(torch.int64)
+    idx = torch.clamp(torch.where(idx < 0, idx + D, idx), 0, D - 1)
     rows = dmajor[idx].to(torch.int32)                    # [..., budget, M]
     return acc + torch.sum(weight[..., None] * rows, dim=-2,
                            dtype=torch.int32)

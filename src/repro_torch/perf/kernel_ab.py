@@ -1,11 +1,13 @@
-"""Same-call A/B of the switch lowering's two kernels across checkouts.
+"""Same-call A/B of the port's hamming and switch kernels across checkouts.
 
     python -m repro_torch.perf.kernel_ab --trees parent=.archive/parent,change=.
+    python -m repro_torch.perf.kernel_ab --trees ... --kernels bank_prefix_hamming
 
 Loads the port's package from each checkout's ``src/`` under its own
 modules (each builds its kernels from its own ``csrc/`` into its own
-``_build/``), holds every checkout's ``delta_update`` and ``fused_scores``
-bit-equal to the plain version at the shapes below and at their edge
+``_build/``), holds every checkout's ``delta_update``, ``fused_scores``,
+``bank_prefix_hamming`` and ``packed_hamming_batched`` bit-equal to the
+plain version of its own checkout at the shapes below and at their edge
 cases, then times each timed shape with the checkouts in turns:
 
 * ``call_ms``: one wrapper call between CUDA events, the checkouts
@@ -34,18 +36,26 @@ from ..device import smi
 
 PKG = "repro_torch"
 D, M, W, BUDGET, N_MAX, STREAMS = 8192, 1024, 256, 2048, 128, 16
+CACHE_K, BANKS = 8, 8
 REPS = 300
+KERNELS = ("delta_update", "fused_scores", "bank_prefix_hamming",
+           "packed_hamming_batched")
+# the compact bucket tiers (rows) that chip_smoke.py's compact and auto
+# runs launch, as their bucket_tier telemetry shows them; 2048 is also
+# the prefix step's launch and the compact step's on overflow
+TIERS = (1024, 2048)
 
 
 def load_tree(path: Path):
-    """(delta_update, fused_scores, ref) modules of the checkout at
-    ``path``, imported apart from every other checkout's."""
+    """(delta_update, fused_window, ref, xnor_popcount_sim) modules of the
+    checkout at ``path``, imported apart from every other checkout's."""
     saved = {k: sys.modules.pop(k) for k in list(sys.modules)
              if k == PKG or k.startswith(PKG + ".")}
     sys.path.insert(0, str(path.resolve() / "src"))
     try:
         mods = tuple(importlib.import_module(f"{PKG}.kernels.{m}")
-                     for m in ("delta_update", "fused_window", "ref"))
+                     for m in ("delta_update", "fused_window", "ref",
+                               "xnor_popcount_sim"))
         build = importlib.import_module(f"{PKG}.kernels.build")
         build.build_all()
     finally:
@@ -140,7 +150,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", required=True,
                     help="name=path,... of checkouts to compare")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma list of the kernels to check and time")
     args = ap.parse_args(argv)
+    kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a GPU")
     print(smi("name,power.limit"), flush=True)
@@ -172,9 +185,13 @@ def main(argv=None) -> int:
     oor = dcase(2, [40, BUDGET])
     oor[2][0, :3] = torch.tensor([-5, D + 100, 2 ** 31 - 1], device=dev)
     oor[3][0, :3] = torch.tensor([2, -2, 2], device=dev)
+    neg = dcase(2, [40, BUDGET])
+    neg[2][0, :5] = torch.tensor([-1, -5, -D, -D - 3, D + 6], device=dev)
+    neg[3][0, :5] = torch.tensor([2, -2, 2, -2, 2], device=dev)
     check_delta = dict(timed_delta, **{
         "ragged(M=1001)": dcase(STREAMS, [BUDGET // 2] * STREAMS, m=1001),
         "indices out of range, weighted": oor,
+        "negative indices -1, -5, -D, -D-3 and D+6, weighted": neg,
         "K=1": dcase(STREAMS, [1] * STREAMS, K=1),
         "K=1001": dcase(STREAMS, [1001, 500] * (STREAMS // 2), K=1001),
         "L=1, all padding": dcase(1, [0]),
@@ -197,27 +214,104 @@ def main(argv=None) -> int:
             32 * W),
     })
 
-    ref = next(iter(trees.values()))[2]
-    for name, (du, fw, _r) in trees.items():
-        for label, a in check_delta.items():
-            if not torch.equal(du.delta_update(*a), ref.delta_update_ref(*a)):
-                raise AssertionError(f"{name} delta_update {label} != plain")
-        for label, (q, h, de) in check_fused.items():
-            got = fw.fused_scores(q, h, d_eff=de)
-            want = ref.fused_scores_ref(q, h, d_eff=de)
-            if not all(torch.equal(g, x) for g, x in zip(got, want)):
-                raise AssertionError(f"{name} fused_scores {label} != plain")
-        print(f"[check] {name}: delta_update at {len(check_delta)} and "
-              f"fused_scores at {len(check_fused)} inputs == plain",
+    words = lambda *shape: torch.randint(   # noqa: E731
+        -2 ** 31, 2 ** 31 - 1, shape, generator=gen, dtype=torch.int32
+    ).to(dev)
+    qp = words(STREAMS * N_MAX, W)
+    timed_prefix = {f"N={n},W={W},cap={BANKS}": (qp[:n], imw, BANKS)
+                    for n in sorted({STREAMS * N_MAX, *TIERS})}
+    timed_prefix.update({
+        f"N={STREAMS * N_MAX},W=64,cap=8 (plan (8,1))": (
+            qp[:, :64].contiguous(), imw[:, :64].contiguous(), 8),
+        f"N={STREAMS * N_MAX},W=8,cap=1 (plan (1,1))": (
+            qp[:, :8].contiguous(), imw[:, :8].contiguous(), 1)})
+    ones = torch.full((45, 40), -1, dtype=torch.int32, device=dev)
+    zmask = torch.arange(40, device=dev) % 3 == 1
+    q40, h40 = words(45, 40), words(77, 40)
+    check_prefix = dict(timed_prefix)
+    for cap in (1, 5, 8):
+        check_prefix.update({
+            f"ragged(N=37,M=1001,W=40,cap={cap})": (
+                words(37, 40), words(1001, 40), cap),
+            f"all ones x all zeros, cap={cap}": (
+                ones, torch.zeros_like(h40), cap),
+            f"equal rows, cap={cap}": (q40, q40.repeat(2, 1)[:77], cap),
+            f"masked words zeroed on both sides, cap={cap}": (
+                torch.where(zmask, 0, q40), torch.where(zmask, 0, h40), cap)})
+    qb, eb = words(STREAMS, N_MAX, W), words(STREAMS, CACHE_K, W)
+    timed_batched = {
+        f"snapshot([{STREAMS},{N_MAX}]x[{STREAMS},{CACHE_K}])": (qb, eb),
+        f"proposals([{STREAMS},{N_MAX}]x[{STREAMS},{N_MAX}])": (qb, qb)}
+    check_batched = dict(timed_batched, **{
+        "ragged([3,37]x[3,5],W=40)": (words(3, 37, 40), words(3, 5, 40)),
+        "ragged([3,37]x[3,1],W=40)": (words(3, 37, 40), words(3, 1, 40)),
+        "ragged([2,37]x[2,8],W=8)": (words(2, 37, 8), words(2, 8, 8)),
+        "2-D [37,40]x[77,40]": (words(37, 40), words(77, 40)),
+        "all ones x all zeros": (ones[None, :37], torch.zeros_like(
+            h40[None, :8])),
+        "masked words zeroed on both sides": (
+            torch.where(zmask, 0, q40)[None], torch.where(zmask, 0, h40)[None]),
+    })
+
+    for name, (du, fw, ref, xps) in trees.items():
+        checked = []
+        if "delta_update" in kernels:
+            for label, a in check_delta.items():
+                if not torch.equal(du.delta_update(*a),
+                                   ref.delta_update_ref(*a)):
+                    raise AssertionError(f"{name} delta_update {label} "
+                                         "!= plain")
+            checked.append(f"delta_update at {len(check_delta)}")
+        if "fused_scores" in kernels:
+            for label, (q, h, de) in check_fused.items():
+                got = fw.fused_scores(q, h, d_eff=de)
+                want = ref.fused_scores_ref(q, h, d_eff=de)
+                if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                    raise AssertionError(f"{name} fused_scores {label} "
+                                         "!= plain")
+            checked.append(f"fused_scores at {len(check_fused)}")
+        if "bank_prefix_hamming" in kernels:
+            for label, (q, h, cap) in check_prefix.items():
+                q, h = q.contiguous(), h.contiguous()
+                if not torch.equal(fw.bank_prefix_hamming(q, h, cap=cap),
+                                   ref.bank_prefix_hamming_ref(q, h,
+                                                               cap=cap)):
+                    raise AssertionError(f"{name} bank_prefix_hamming "
+                                         f"{label} != plain")
+            checked.append(f"bank_prefix_hamming at {len(check_prefix)}")
+        if "packed_hamming_batched" in kernels:
+            for label, (q, h) in check_batched.items():
+                q, h = q.contiguous(), h.contiguous()
+                if not torch.equal(xps.packed_hamming_batched(q, h),
+                                   ref.packed_hamming_ref(q, h)):
+                    raise AssertionError(f"{name} packed_hamming_batched "
+                                         f"{label} != plain")
+            checked.append(f"packed_hamming_batched at {len(check_batched)}")
+        print(f"[check] {name}: {', '.join(checked)} inputs == plain",
               flush=True)
 
-    rows = [("delta_update", k, {n: (lambda m=t[0], a=a: m.delta_update(*a))
-                                 for n, t in trees.items()})
-            for k, a in timed_delta.items()]
-    rows += [("fused_scores", k,
-              {n: (lambda m=t[1], c=c: m.fused_scores(c[0], c[1], d_eff=c[2]))
-               for n, t in trees.items()})
-             for k, c in timed_fused.items()]
+    rows = []
+    if "delta_update" in kernels:
+        rows += [("delta_update", k,
+                  {n: (lambda m=t[0], a=a: m.delta_update(*a))
+                   for n, t in trees.items()})
+                 for k, a in timed_delta.items()]
+    if "fused_scores" in kernels:
+        rows += [("fused_scores", k,
+                  {n: (lambda m=t[1], c=c: m.fused_scores(c[0], c[1],
+                                                          d_eff=c[2]))
+                   for n, t in trees.items()})
+                 for k, c in timed_fused.items()]
+    if "bank_prefix_hamming" in kernels:
+        rows += [("bank_prefix_hamming", k,
+                  {n: (lambda m=t[1], c=c: m.bank_prefix_hamming(
+                      c[0], c[1], cap=c[2])) for n, t in trees.items()})
+                 for k, c in timed_prefix.items()]
+    if "packed_hamming_batched" in kernels:
+        rows += [("packed_hamming_batched", k,
+                  {n: (lambda m=t[3], c=c: m.packed_hamming_batched(*c))
+                   for n, t in trees.items()})
+                 for k, c in timed_batched.items()]
     for kernel, label, fns in rows:
         res = call_times(fns, REPS)
         for k, v in host_times(fns).items():

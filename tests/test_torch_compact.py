@@ -49,7 +49,7 @@ def _words(rng, shape):
 def test_packed_hamming_batched_matches_pallas(S, N, M, W):
     """Each batch of the plain version == the interpret-mode Pallas grid,
     at the decide pass's shapes (M = K small, M = N) and ragged ones; the
-    TQ = 1 wrapper agrees."""
+    2-D form agrees."""
     rng = np.random.default_rng(S * 100 + N + M + W)
     q, h = _words(rng, (S, N, W)), _words(rng, (S, M, W))
     got = xnor_popcount_sim.packed_hamming_batched(_t(q), _t(h))
@@ -59,11 +59,8 @@ def test_packed_hamming_batched_matches_pallas(S, N, M, W):
                                            jnp.asarray(h[s]),
                                            tw=min(128, W), interpret=True)
         assert_same(got[s], want, s)
-        assert_same(xnor_popcount_sim.packed_hamming(_t(q[s]), _t(h[s])),
-                    want, s)
-    assert xnor_popcount_sim.fit_tile(128, 8) == 8
-    assert xnor_popcount_sim.fit_tile(37, 8) == 1
-    assert xnor_popcount_sim.fit_tile(12, 8) == 6
+        assert_same(xnor_popcount_sim.packed_hamming_batched(
+            _t(q[s]), _t(h[s])), want, s)
 
 
 def test_lookup_ops_match_jax():
@@ -113,8 +110,6 @@ def test_batched_hamming_wrappers_route_and_reject(monkeypatch):
     with pytest.raises(ValueError):
         xnor_popcount_sim.packed_hamming_batched(q, q[..., :8])
     with pytest.raises(ValueError):
-        xnor_popcount_sim.packed_hamming_batched(q, q, tq=9)
-    with pytest.raises(ValueError):
         xnor_popcount_sim.packed_hamming_batched(q.to("meta"), q.to("meta"))
 
     def refuse(*a, **k):
@@ -124,7 +119,7 @@ def test_batched_hamming_wrappers_route_and_reject(monkeypatch):
     monkeypatch.setattr(build, "build_all", refuse)
     before = dict(build.LAUNCHES)
     xnor_popcount_sim.packed_hamming_batched(q, q)
-    xnor_popcount_sim.packed_hamming(q[0], q[0])
+    xnor_popcount_sim.packed_hamming_batched(q[0], q[0])
     ops.masked_hamming_all(q, q, torch.ones((2, 16), dtype=torch.bool))
     assert build.LAUNCHES == before
 

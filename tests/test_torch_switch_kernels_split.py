@@ -8,7 +8,8 @@ adversarial inputs.
 CHUNK entries of its runs at a time (weighted entries only, in budget
 order), its warps gather the dense list in rounds of
 GROUPS * U entries, and the cluster adds the blocks' partial sums to
-``acc`` column by column; indices clamp to [0, D).
+``acc`` column by column; an index wraps from the end once if negative,
+then clamps to [0, D), as JAX's gather takes it.
 
 ``fused_scores``: a word's nibbles are spread to 0/1 bytes by
 ``(nib * 0x204081) & 0x01010101`` into the m16n8k32 u8 fragments, one
@@ -54,9 +55,10 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 def emulate_delta_update(acc, dmajor, idx, w, *, split, cols, warps, chunk,
                          groups, u, run=32):
-    """acc + sum_k w * dmajor[clamp(idx)] as the kernel's blocks compute it:
-    int32 [L, M]. Block s of a cluster takes the run-entry runs s,
-    s + split, ... of the budget, chunk // run runs a pass."""
+    """acc + sum_k w * dmajor[idx] as the kernel's blocks compute it:
+    int32 [L, M], a negative index wrapped once and every index clamped to
+    [0, D). Block s of a cluster takes the run-entry runs s, s + split, ...
+    of the budget, chunk // run runs a pass."""
     L, M = acc.shape
     D, K = dmajor.shape[0], idx.shape[1]
     runs, per_pass = -(-K // run), chunk // run
@@ -74,7 +76,9 @@ def emulate_delta_update(acc, dmajor, idx, w, *, split, cols, warps, chunk,
                                        for j in range(run)])
                     ks = ks[ks < K]
                     keep = ks[w[l, ks] != 0]             # compaction, in order
-                    dense_i = torch.clamp(idx[l, keep], 0, D - 1)
+                    ix = idx[l, keep]
+                    dense_i = torch.clamp(torch.where(ix < 0, ix + D, ix),
+                                          0, D - 1)
                     dense_w = w[l, keep]
                     for e in range(len(keep)):
                         # entry e = e0 + uu * groups + grp, e0 stepping by
@@ -144,6 +148,29 @@ def test_delta_update_split_at_other_tile_sizes(sizes):
     acc, dmaj, idx, w = _delta_case(rng, 3, 96, 123, 256, [123, 7, 0], True)
     got = emulate_delta_update(*(_t(a) for a in (acc, dmaj, idx, w)), **sizes)
     assert_same(got, _jax_delta(acc, dmaj, idx, w))
+
+
+def test_delta_update_wraps_negative_indices_as_jax():
+    """Weighted indices -1, -5, -D, -D - 3 and D + 6: the port's plain
+    version and the kernel's emulation read the rows JAX's Pallas kernel
+    (interpret mode) and its reference gather read (a negative index wraps
+    from the end once, then every index clamps to [0, D))."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(16)
+    D, M = 256, 64
+    acc, dmaj, idx, w = _delta_case(rng, 2, M, 40, D, [12, 40])
+    bad = [-1, -5, -D, -D - 3, D + 6]
+    idx[0, :5], w[0, :5] = bad, [2, -2, 2, -2, 2]
+    idx[1, -5:], w[1, -5:] = bad, [-2, 2, -2, 2, -2]
+    want = _jax_delta(acc, dmaj, idx, w)
+    assert_same(want, np.stack([np.asarray(jref.delta_update_ref(
+        jnp.asarray(acc[r]), jnp.asarray(dmaj), jnp.asarray(idx[r]),
+        jnp.asarray(w[r]))) for r in range(2)]), "JAX kernel vs JAX ref")
+    args = tuple(_t(a) for a in (acc, dmaj, idx, w))
+    assert_same(ref.delta_update_ref(*args), want, "plain version")
+    assert_same(emulate_delta_update(*args, **DU), want, "emulation")
 
 
 # --- fused_scores ------------------------------------------------------------
