@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 Phases (any failed check raises, and the script exits non-zero without
-printing its result line):
+printing its result line). Every engine runs with its default ``jit=True``
+(each step segment replayed from a CUDA graph captured once per static
+key, ``core/capture.py``) and ``run_torr`` likewise; phase 10 runs every
+captured run of phases 3-5 and 8 again eagerly and holds the two bit for
+bit:
 
   1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
      the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
@@ -46,13 +50,14 @@ printing its result line):
      the cache depth): bypass and delta must occur after each stream's
      first window, and the card must again equal the CPU engine;
   5. the serial switch engine (``StreamEngine(serial=True)``: the
-     ``fused_scores`` and ``delta_update`` kernels) on the served traffic;
-     after the run, the weighted entries per row of its proposals'
+     ``fused_scores`` and ``delta_update`` kernels) on both traffics;
+     after the served run, the weighted entries per row of its proposals'
      ``delta_update`` launches, read from the run's telemetry, are printed
      and ``delta_update`` is checked and timed at their median (the
      report's main shape),
-     and the compact and auto engines (``fused="compact"``/``"auto"``: the
-     ``packed_hamming_batched`` decide tables and the bucket scan) on both
+     and the compact (batched and scan decide) and auto engines
+     (``fused="compact"``/``"auto"``: the ``packed_hamming_batched``
+     decide tables and the bucket scan) on both
      traffics, each bit-equal to the card's prefix engine of phase 3 or 4
      in every field but the lowering's own telemetry encodings; on the
      reuse traffic auto must reach the compact lowering; every bucket
@@ -80,15 +85,24 @@ printing its result line):
      (the async engine's dispatch loop, written out on the host), then its
      ``plan_log`` replayed with ``set_plan`` on a fresh prefix engine,
      bit-equal;
- 10. the device-idle share of every level and lowering of phase 8 on the
+ 10. eager == captured: every run of phases 3-5 and 8 again with
+     ``StreamEngine(jit=False)`` (the switch stream without a graph
+     family), on the same packed words: every output, telemetry field and
+     final cache bit-equal to the captured run's; each run's eager and
+     captured ms/step (steps timed to their sync), then one line with each
+     lowering's, the graph counts and ``torch.cuda.memory_reserved()``
+     (the graph count and memory are also printed after phase 8);
+ 11. the device-idle share of every level and lowering of phase 8 on the
      served traffic (its second window again, under ``torch.profiler``),
      last, because a profiled step slows the steps after it.
 
 Each path's kernel launches are counted from zero around that path's run
-and must all be above zero. Each phase's seconds are logged as
-``[phase]`` lines. The plan-ladder rows (ms/step, windows/s, idle share)
-and the per-kernel report are printed as JSON before the last line, which
-is ``{"ok": true, "device": {...}}``.
+and must all be above zero; a replayed graph adds the launches its
+capture recorded (``GraphFamily``), so the counts keep their meaning.
+Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
+rows (captured and eager ms/step, windows/s, idle share) and the
+per-kernel report are printed as JSON before the last line, which is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -933,17 +947,21 @@ def _encode_kernels(cfg, gen, dev, N):
 # the lowering encodings (core.types FUSED_IDS / DECIDE_IDS) each engine's
 # telemetry must carry
 FUSED_PREFIX, FUSED_SWITCH, FUSED_COMPACT = 2, 1, 3
-DECIDE_BATCHED, DECIDE_NONE = 1, -1
+DECIDE_SCAN, DECIDE_BATCHED, DECIDE_NONE = 0, 1, -1
 LOWERING_FIELDS = ("fused_mode", "decide_mode", "bucket_tier")
 
 
-def _serve_card(cfg, sys_, frames, report, label, steps=None, **engine_kw):
+def _serve_card(cfg, sys_, frames, report, label, steps=None, words=None,
+                warm=True, **engine_kw):
     """Serve ``frames`` (S streams in S slots) through an engine on the
-    card: features -> ``encode_packed`` -> ``submit`` -> ``step`` ->
-    ``sync`` (all of them, or the first ``steps``), with every kernel's
-    launches counted from zero around the run. Returns the engine, its
-    per-stream results, the state after each step, each step's packed
-    words and the launch counts."""
+    card: features -> ``encode_packed`` (or the given per-step ``words``)
+    -> ``submit`` -> ``step`` -> ``sync`` (all of them, or the first
+    ``steps``), each step timed on the host clock up to its sync, with
+    every kernel's launches counted from zero around the run. ``warm``
+    runs the engine's warm-up first (with ``jit`` it captures the first
+    key). Returns the engine, its per-stream results, the state after each
+    step, each step's packed words, the launch counts and the step times
+    in ms."""
     from repro_torch.kernels import build
     from repro_torch.perf.profile_step import encode_step, submit_step
     from repro_torch.serving.stream_engine import StreamEngine
@@ -951,33 +969,67 @@ def _serve_card(cfg, sys_, frames, report, label, steps=None, **engine_kw):
     S, T = len(frames), len(frames[0])
     R = torch.as_tensor(sys_.R).cuda()
     eng = StreamEngine(cfg, sys_.im, n_slots=S, **engine_kw)
-    eng.warmup()
+    t0 = time.perf_counter()
+    if warm:
+        eng.warmup()
     eng.sync()
+    warm_s = time.perf_counter() - t0
     build.reset_launches()
     t0 = time.perf_counter()
     for s in range(S):
         eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
-    words, states = [], []
+    encode = words is None
+    words = [] if encode else words
     for t in range(T):    # one encode call per step's windows
-        words.append(encode_step(frames, t, R))
-        submit_step(eng, frames, t, words[-1])
+        if encode:
+            words.append(encode_step(frames, t, R))
+        submit_step(eng, frames, t, words[t])
     res = {f"cam{s}": [] for s in range(S)}
+    states, step_ms = [], []
     # each stream's backlog is its queue depth
     while eng.busy and (steps is None or len(states) < steps):
-        for sid, r in eng.step().items():
+        t1 = time.perf_counter()
+        out = eng.step()
+        eng.sync()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        for sid, r in out.items():
             res[sid].append(r)
         states.append(eng.state)
-    eng.sync()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    # each graph's segment, host value and kernel nodes
+    nodes = {f"{k[0]}{list(k[5:])}": eng.graphs.entry(k).kernel_nodes
+             for k in (eng.graphs.keys() if eng.graphs else ())}
     log(f"[{label}] {torch.cuda.get_device_name(0)}: {eng.stats.windows} "
         f"windows in {wall:.3f} s = {eng.stats.windows / wall:.1f} "
         f"windows/s, {1e3 * wall / eng.stats.steps:.1f} ms/step (encode "
-        f"included); launches {launches}")
+        f"included); steps alone {[round(x, 2) for x in step_ms]} ms; "
+        f"warm-up {warm_s:.3f} s; graphs (kernel nodes) {nodes}; launches "
+        f"{launches}")
     for name, n in launches.items():
         if name in report and "launches" not in report[name] and n > 0:
             report[name]["launches"] = n
-    return eng, res, states, words, launches
+    return eng, res, states, words, launches, step_ms
+
+
+def _captured_run(runs, label, res, cache, step_ms, graphs, eager, row=None):
+    """Record a captured run for :func:`phase_eager`: its results, final
+    cache, step times and graph count, and ``eager``, which runs the same
+    thing with ``jit=False`` and returns (results, final cache, step ms)."""
+    runs.append(dict(label=label, res=res, cache=cache,
+                     ms=statistics.median(step_ms), graphs=graphs,
+                     eager=eager, row=row))
+
+
+def _eager_serve(cfg, sys_, frames, label, words, steps=None, **engine_kw):
+    """:func:`_serve_card` of the same words on ``StreamEngine(jit=False)``
+    (no warm-up: the kernels are built)."""
+    def run():
+        eng, res, _states, _words, _launches, ms = _serve_card(
+            cfg, sys_, frames, {}, f"{label}, eager", steps=steps,
+            words=words, warm=False, jit=False, **engine_kw)
+        return res, eng.state.cache, ms
+    return run
 
 
 def _require_launched(label, launches, names):
@@ -1053,13 +1105,13 @@ def _equal_to_cpu(cfg, sys_, frames, res, states, words, label, n,
         f"telemetry and caches bit-equal")
 
 
-def phase_serving(cfg, sys_, frames, report, label, cpu_windows):
+def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs):
     """The multi-stream step's default (prefix) lowering on the card, its
     first ``cpu_windows`` windows checked bit-equal to the CPU engine;
     returns its results and the state after each step for the other
-    lowerings to be held to."""
-    eng, res, states, words, launches = _serve_card(cfg, sys_, frames,
-                                                    report, label)
+    lowerings to be held to, and records the run for :func:`phase_eager`."""
+    eng, res, states, words, launches, step_ms = _serve_card(
+        cfg, sys_, frames, report, label)
     _require_launched(label, launches,
                       ("bank_prefix_hamming", "sign_project_pack"))
     n_valid = [int(f.valid.sum()) for fr in frames for f in fr]
@@ -1076,20 +1128,26 @@ def phase_serving(cfg, sys_, frames, report, label, cpu_windows):
             if int(tel.fused_mode) != FUSED_PREFIX:
                 raise AssertionError(f"{sid}: fused_mode {tel.fused_mode}")
     _equal_to_cpu(cfg, sys_, frames, res, states, words, label, cpu_windows)
+    _captured_run(runs, label, res, eng.state.cache, step_ms, len(eng.graphs),
+                  _eager_serve(cfg, sys_, frames, label, words))
     return res, states
 
 
 def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
-                   lowerings, n_windows=None, **engine_kw):
+                   lowerings, runs, n_windows=None, **engine_kw):
     """An engine on another lowering, held bit-equal to the card's prefix
     engine (``base`` = its results and per-step states) in every field but
     the lowering encodings, which must be one of ``lowerings`` (tuples of
     fused_mode, decide_mode, bucket tier or None for any compact tier),
-    over the first ``n_windows`` steps (all by default). Returns the
-    per-step encodings and the engine's per-stream results."""
+    over the first ``n_windows`` steps (all by default); the run is
+    recorded for :func:`phase_eager`. Returns the per-step encodings and
+    the engine's per-stream results."""
     base_res, base_states = base
-    eng, res, states, _words, launches = _serve_card(
+    eng, res, states, words, launches, step_ms = _serve_card(
         cfg, sys_, frames, report, label, steps=n_windows, **engine_kw)
+    _captured_run(runs, label, res, eng.state.cache, step_ms, len(eng.graphs),
+                  _eager_serve(cfg, sys_, frames, label, words,
+                               steps=n_windows, **engine_kw))
     _require_launched(label, launches, kernels)
     _assert_results_equal(label, res, base_res, skip=LOWERING_FIELDS)
     _assert_caches_equal(label, eng.state.cache,
@@ -1238,8 +1296,9 @@ def _serve_words(cfg, sys_, frames, words, plan, profile, **engine_kw):
     """Serve pre-encoded ``words`` (one [S x N_max, W] tensor per window,
     all submitted first) through an engine on the card with ``plan``
     latched, launches counted from zero. Returns its results, the state
-    after each step, the launches, the host ms of each timed step and the
-    device busy ms of the profiled one (see :func:`_timed_steps`)."""
+    after each step, the launches, the host ms of each timed step, the
+    device busy ms of the profiled one (see :func:`_timed_steps`) and the
+    engine's graph count."""
     from repro_torch.kernels import build
     from repro_torch.perf.profile_step import submit_step
     from repro_torch.serving.stream_engine import StreamEngine
@@ -1263,34 +1322,46 @@ def _serve_words(cfg, sys_, frames, words, plan, profile, **engine_kw):
 
     build.reset_launches()
     step_ms, busy = _timed_steps(len(words), one, profile)
-    return res, states, dict(build.LAUNCHES), step_ms, busy
+    return (res, states, dict(build.LAUNCHES), step_ms, busy,
+            len(eng.graphs) if eng.graphs else 0)
 
 
-def _switch_stream(cfg, sys_, frames, words, plan, profile):
+def _switch_stream(cfg, sys_, frames, words, plan, profile, jit=True):
     """Stream 0 of ``words`` through ``torr_window_step(fused="switch",
     plan=plan)`` on the card, with the queue depth the engine gives it
-    (its backlog after the pop); launches counted from zero."""
-    from repro_torch.core import pipeline
+    (its backlog after the pop), through a graph family of its own (as
+    ``run_torr`` runs it; an all-pad window captures its first key before
+    the timed windows, as an engine's warm-up does) or, without ``jit``,
+    eagerly; launches counted from zero. Returns the final state, the results, the launches, the
+    step ms, the device busy ms and the graph count."""
+    from repro_torch.core import capture, pipeline
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
     im = sys_.im.to(resolve_device())
+    graphs = capture.GraphFamily() if jit else None
     T, n = len(words), cfg.N_max
     st = pipeline.init_state(cfg, sys_.task_w[0])
     res = []
+    if jit:   # an all-pad window at the first depth captures, untimed
+        fr = frames[0][0]
+        pipeline.torr_window_step(
+            st, im, torch.zeros_like(words[0][:n]), np.zeros_like(fr.valid),
+            fr.boxes, T - 1, cfg, plan=plan, fused="switch", graphs=graphs)
 
     def one(t):
         nonlocal st
         fr = frames[0][t]
         st, out, tel = pipeline.torr_window_step(
             st, im, words[t][:n], fr.valid, fr.boxes, T - 1 - t, cfg,
-            plan=plan, fused="switch")
+            plan=plan, fused="switch", graphs=graphs)
         res.append((out, tel))
         torch.cuda.synchronize()
 
     build.reset_launches()
     step_ms, busy = _timed_steps(T, one, profile)
-    return st, res, dict(build.LAUNCHES), step_ms, busy
+    return (st, res, dict(build.LAUNCHES), step_ms, busy,
+            len(graphs) if graphs else 0)
 
 
 def _check_plan_windows(label, res, plan, encoding):
@@ -1316,10 +1387,11 @@ PLAN_LOWERINGS = (
      (FUSED_COMPACT, DECIDE_BATCHED)))
 
 
-def phase_plans(cfg, sys_, served, reuse):
+def phase_plans(cfg, sys_, served, reuse, runs):
     """Every level of the edge ladder on the prefix, compact and switch
     lowerings, both traffics, each step timed (see the module docstring,
-    phase 8). Returns one row per (traffic, level, lowering)."""
+    phase 8); every run is recorded for :func:`phase_eager`. Returns one
+    row per (traffic, level, lowering)."""
     from repro_torch.control import build_ladder
     from repro_torch.core.types import map_tensors
     from repro_torch.perf.profile_step import encode_step
@@ -1329,27 +1401,30 @@ def phase_plans(cfg, sys_, served, reuse):
     S = len(served)
     rows = []
     T = PLAN_WINDOWS
+    n_graphs = []
     for traffic, frames in (("served", served), ("reuse", reuse)):
         frames = [fr[:T] for fr in frames]
         words = [encode_step(frames, t, R) for t in range(T)]
         for level, plan in enumerate(ladder):
             tag = f"plan {level} ({plan.banks},{plan.planes}) {traffic}"
-            runs = {}
+            runs_l = {}
             for low, kw, kernels, enc in PLAN_LOWERINGS:
                 tier = S * cfg.N_max if low == "compact" else 0
-                res, states, launches, ms, _busy = _serve_words(
+                res, states, launches, ms, _busy, graphs = _serve_words(
                     cfg, sys_, frames, words, plan, False, **kw)
                 _require_launched(f"{tag} {low}", launches, kernels)
                 _check_plan_windows(f"{tag} {low}", res, plan, enc + (tier,))
-                runs[low] = (res, states, ms, S)
-            base_res, base_states = runs["prefix"][:2]
-            res, states = runs["compact"][:2]
+                runs_l[low] = (res, states, ms, S, graphs, kw)
+                n_graphs.append(graphs)
+            base_res, base_states = runs_l["prefix"][:2]
+            res, states = runs_l["compact"][:2]
             _assert_results_equal(f"{tag} compact", res, base_res,
                                   skip=LOWERING_FIELDS)
             _assert_caches_equal(f"{tag} compact", states[-1].cache,
                                  base_states[-1].cache)
-            st, res_sw, launches, ms, _busy = _switch_stream(
+            st, res_sw, launches, ms, _busy, graphs = _switch_stream(
                 cfg, sys_, frames, words, plan, False)
+            n_graphs.append(graphs)
             _require_launched(f"{tag} switch", launches,
                               ("fused_scores", "delta_update"))
             _check_plan_windows(f"{tag} switch", {"cam0": res_sw}, plan,
@@ -1358,16 +1433,21 @@ def phase_plans(cfg, sys_, served, reuse):
                                   base_res, skip=LOWERING_FIELDS)
             _assert_caches_equal(f"{tag} switch", st.cache, map_tensors(
                 lambda x: x[0], base_states[-1].cache))
-            runs["switch"] = (res_sw, None, ms, 1)
-            for low, (_r, _s, ms, wins) in runs.items():
+            runs_l["switch"] = ({"cam0": res_sw}, [st], ms, 1, graphs, None)
+            for low, (res, states, ms, wins, graphs, kw) in runs_l.items():
                 row = dict(traffic=traffic, level=level, banks=plan.banks,
                            planes=plan.planes, lowering=low, ms_per_step=ms,
+                           eager_ms_per_step=None,
                            windows_per_s=1e3 * wins / statistics.median(ms),
                            device_busy_ms=None, idle_share=None)
                 rows.append(row)
                 log(f"[{tag} {low}] {wins} windows/step: ms/step "
                     f"{[round(x, 2) for x in ms]} = "
-                    f"{row['windows_per_s']:.1f} windows/s")
+                    f"{row['windows_per_s']:.1f} windows/s; graphs {graphs}")
+                _captured_run(runs, f"{tag} {low}", res, states[-1].cache,
+                              ms, graphs,
+                              _eager_plan(cfg, sys_, frames, words, plan, kw),
+                              row=row)
             log(f"[{tag}] compact and switch == card prefix engine in every "
                 f"field; path mix after the first window "
                 f"{_path_mix(frames, base_res)}")
@@ -1375,7 +1455,55 @@ def phase_plans(cfg, sys_, served, reuse):
                     (plan.banks, plan.planes) in PLAN_CPU_LEVELS:
                 _equal_to_cpu(cfg, sys_, frames, base_res, base_states,
                               words, tag, T, plan=plan)
+    log(f"[plan ladder graphs] {sum(n_graphs)} graphs captured over "
+        f"{len(n_graphs)} engines and switch streams (at most "
+        f"{max(n_graphs)} each); torch.cuda.memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
     return rows
+
+
+def _eager_plan(cfg, sys_, frames, words, plan, kw):
+    """The eager twin of a ladder run: the engine (``kw``) with
+    ``jit=False``, or the switch stream without a graph family (``kw`` is
+    None); returns (results, final cache, step ms)."""
+    def run():
+        if kw is None:
+            st, res, _l, ms, _b, _g = _switch_stream(cfg, sys_, frames, words,
+                                                     plan, False, jit=False)
+            return {"cam0": res}, st.cache, ms
+        res, states, _l, ms, _b, _g = _serve_words(cfg, sys_, frames, words,
+                                                   plan, False, jit=False,
+                                                   **kw)
+        return res, states[-1].cache, ms
+    return run
+
+
+def phase_eager(runs):
+    """Every captured run of phases 3-5 and 8 again on the eager step
+    (``StreamEngine(jit=False)``, the switch stream without graphs): every
+    output, telemetry field and final cache must be bit-equal to the
+    captured run's. Prints each run's eager and captured ms/step and one
+    line with each lowering's, the graph counts and the memory the
+    caching allocator holds."""
+    for r in runs:
+        res, cache, ms = r["eager"]()
+        for sid, wins in r["res"].items():
+            if len(res[sid]) != len(wins):
+                raise AssertionError(f"{r['label']} eager: {sid} "
+                                     f"{len(res[sid])} windows")
+        _assert_results_equal(f"{r['label']} eager", res, r["res"])
+        _assert_caches_equal(f"{r['label']} eager", cache, r["cache"])
+        r["eager_ms"] = statistics.median(ms)
+        if r["row"] is not None:
+            r["row"]["eager_ms_per_step"] = ms
+        log(f"[eager == captured] {r['label']}: outputs, telemetry and final "
+            f"caches bit-equal; ms/step eager {r['eager_ms']:.2f}, captured "
+            f"{r['ms']:.2f} ({r['graphs']} graphs)")
+    log("[eager vs captured] median ms/step, eager / captured: " + "; ".join(
+        f"{r['label']} {r['eager_ms']:.2f} / {r['ms']:.2f} ({r['graphs']} "
+        f"graphs)" for r in runs if r["row"] is None)
+        + f"; torch.cuda.memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
 
 
 def phase_plan_idle(cfg, sys_, served, rows):
@@ -1394,10 +1522,10 @@ def phase_plan_idle(cfg, sys_, served, rows):
               if r["traffic"] == "served"}
     for level, plan in enumerate(build_ladder(cfg)):
         busy = {low: _serve_words(cfg, sys_, frames, words, plan, True,
-                                  **kw)[-1]
+                                  **kw)[4]
                 for low, kw, _k, _e in PLAN_LOWERINGS}
         busy["switch"] = _switch_stream(cfg, sys_, frames, words, plan,
-                                        True)[-1]
+                                        True)[4]
         for low, b in busy.items():
             row = row_of[(level, low)]
             row["device_busy_ms"] = b
@@ -1519,10 +1647,12 @@ def main() -> int:
 
     served = edge_windows(world, cfg, STREAMS, WINDOWS, cfg.N_max)
     reuse = edge_windows(world, cfg, STREAMS, REUSE_WINDOWS, cfg.K)
-    base = phase_serving(cfg, sys_, served, report, "serve", CPU_WINDOWS)
+    runs = []            # the captured runs phase_eager repeats eagerly
+    base = phase_serving(cfg, sys_, served, report, "serve", CPU_WINDOWS,
+                         runs)
     base_reuse = phase_serving(cfg, sys_, reuse, report,
                                f"reuse, windows cut to K={cfg.K} proposals",
-                               CPU_WINDOWS)
+                               CPU_WINDOWS, runs)
     mix = _path_mix(reuse, base_reuse[0])
     if mix["bypass"] <= 0 or mix["delta"] <= 0:
         raise AssertionError("reuse traffic: no bypass or no delta after "
@@ -1533,37 +1663,46 @@ def main() -> int:
     compact = (FUSED_COMPACT, DECIDE_BATCHED, None)
     prefix = (FUSED_PREFIX, DECIDE_NONE, 0)
     _, res = phase_lowering(
-        cfg, sys_, served, report, "serial switch", base,
-        ("fused_scores", "delta_update"), (switch,),
+        cfg, sys_, served, report, "serial switch, served", base,
+        ("fused_scores", "delta_update"), (switch,), runs,
         n_windows=SERIAL_WINDOWS, serial=True)
     _delta_median(cfg, im_cuda.dmajor, _delta_fill_counts(cfg, served, res),
                   report, rates)
+    phase_lowering(cfg, sys_, reuse, report, "serial switch, reuse",
+                   base_reuse, ("fused_scores", "delta_update"), (switch,),
+                   runs, n_windows=SERIAL_WINDOWS, serial=True)
     full_tier = (FUSED_COMPACT, DECIDE_BATCHED, STREAMS * cfg.N_max)
+    scan_tier = (FUSED_COMPACT, DECIDE_SCAN, STREAMS * cfg.N_max)
     compact_kernels = ("packed_hamming_batched", "bank_prefix_hamming")
     tiers = set()
     for traffic, b, frames in (("served", base, served),
                                ("reuse", base_reuse, reuse)):
         seen, _ = phase_lowering(cfg, sys_, frames, report,
                                  f"compact, {traffic}", b, compact_kernels,
-                                 (full_tier,), fused="compact")
+                                 (full_tier,), runs, fused="compact")
         tiers.update(e[2] for e in seen if e[0] == FUSED_COMPACT)
+        phase_lowering(cfg, sys_, frames, report, f"compact scan, {traffic}",
+                       b, ("bank_prefix_hamming", "delta_update"),
+                       (scan_tier,), runs, fused="compact", decide="scan")
         seen, _ = phase_lowering(
             cfg, sys_, frames, report, f"auto, {traffic}", b,
-            ("bank_prefix_hamming",), (prefix, compact), fused="auto")
+            ("bank_prefix_hamming",), (prefix, compact), runs, fused="auto")
         tiers.update(e[2] for e in seen if e[0] == FUSED_COMPACT)
         if traffic == "reuse" and not any(e[0] == FUSED_COMPACT
                                           for e in seen):
             raise AssertionError("auto never reached the compact lowering "
                                  "on the reuse traffic")
     _prefix_tiers(cfg, im_cuda.packed, tiers, report, rates)
-    done("lowerings (serial switch, compact, auto)")
+    done("lowerings (serial switch, compact, compact scan, auto)")
     phase_evaluate(cfg, world, sys_)
     done("evaluate")
     phase_sign_project(sys_, served, report)
-    rows = phase_plans(cfg, sys_, served, reuse)
+    rows = phase_plans(cfg, sys_, served, reuse, runs)
     done("plan ladder")
     phase_governed(cfg, sys_, reuse)
     done("governed")
+    phase_eager(runs)
+    done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
     done("plan ladder idle share")
     missing = [n for n, r in report.items() if "launches" not in r]

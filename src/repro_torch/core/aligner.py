@@ -11,7 +11,7 @@ import torch
 
 from ..kernels import fused_window as fw
 from . import hdc
-from .item_memory import ItemMemory, bank_plane_sel, pmajor_bank_blocks
+from .item_memory import ItemMemory, pmajor_bank_blocks
 from .types import TorrConfig
 
 
@@ -93,8 +93,11 @@ def delta_corrections(d_idx: torch.Tensor, d_weight: torch.Tensor,
 def delta_apply(acc: torch.Tensor, im: ItemMemory, idx: torch.Tensor,
                 weight: torch.Tensor) -> torch.Tensor:
     """Eq. 6 through the ``delta_update`` kernel (reads only the flipped
-    rows of ``dmajor``), equal to :func:`delta_correct`."""
-    return fw.delta_apply(acc, im.dmajor, idx, weight)
+    rows of ``dmajor``), equal to :func:`delta_correct`. The kernel takes
+    contiguous rows; the apply loop's per-proposal slices of a [S, N, ...]
+    decision array are strided."""
+    return fw.delta_apply(acc.contiguous(), im.dmajor, idx.contiguous(),
+                          weight.contiguous())
 
 
 def readout(acc: torch.Tensor, d_eff) -> torch.Tensor:
@@ -114,14 +117,16 @@ def _plan_columns_bank_major(q_packed_all: torch.Tensor, im: ItemMemory,
     boundaries stay word prefixes, the bank-prefix kernel's contract). Full
     precision keeps the contiguous bank prefix of ``packed``; reduced
     precision assembles contiguous slices of ``pmajor`` for the item memory
-    and gathers the query columns."""
+    and takes the query columns through a view (bank, word, plane) ->
+    (bank, plane, word) of the same order, so no index array crosses from
+    the host."""
     if planes >= cfg.bit_planes:
         we = banks * cfg.bank_words
         return q_packed_all[:, :we], im.packed[:, :we]
-    sel = torch.as_tensor(bank_plane_sel(cfg, banks, planes),
-                          device=q_packed_all.device)
-    return (q_packed_all[:, sel],
-            pmajor_bank_blocks(im.pmajor, cfg, banks, planes))
+    n = q_packed_all.shape[0]
+    q = q_packed_all.reshape(n, cfg.B, cfg.plane_words, cfg.bit_planes)
+    q_sel = q[:, :banks, :, :planes].permute(0, 1, 3, 2).reshape(n, -1)
+    return q_sel, pmajor_bank_blocks(im.pmajor, cfg, banks, planes)
 
 
 def plan_prefix_hamming(q_packed: torch.Tensor, im: ItemMemory,
@@ -150,41 +155,17 @@ def prefix_select(ham_prefix: torch.Tensor, banks: torch.Tensor,
 
 def full_scores_all(q_packed_all: torch.Tensor, im: ItemMemory,
                     banks: torch.Tensor, cfg: TorrConfig, *, planes: int,
-                    cap: int, mode: str = "switch") -> torch.Tensor:
-    """Full-path integer accumulators for all proposals of a window.
-
-    ``q_packed_all`` int32 [..., N, W] and ``banks`` [...] (one bank choice
-    per window). Returns int32 [..., N, M], equal to :func:`full_dot` under
-    the same plan, through one of two kernel dispatches:
-
-      * ``mode="switch"``: each window's bank choice slices its enabled
-        words and one ``fused_scores`` pass scans them (the branch JAX's
-        ``lax.switch`` picks on the device). The bank choices are read on
-        the host once per call, and windows that share a choice share a
-        launch.
-      * ``mode="prefix"``: one ``bank_prefix_hamming`` pass over the
-        plan-capped prefix of every row of every window at once (the
-        multi-stream step's whole S x N_max batch), then each window
-        selects its bank boundary; no host read."""
-    banks = torch.clamp(torch.as_tensor(banks, device=q_packed_all.device),
-                        1, cap)
+                    cap: int) -> torch.Tensor:
+    """Full-path integer accumulators for all proposals of a window batch
+    through the bank-prefix dispatch: ``q_packed_all`` int32 [..., N, W]
+    and ``banks`` [...] (one bank choice per window). One
+    ``bank_prefix_hamming`` pass over the plan-capped prefix of every row
+    of every window at once (the multi-stream step's whole S x N_max
+    batch), then each window selects its bank boundary; no host read.
+    Returns int32 [..., N, M], equal to :func:`full_dot` under the same
+    plan."""
+    banks = torch.clamp(banks, 1, cap)
     lead, (N, W) = q_packed_all.shape[:-2], q_packed_all.shape[-2:]
-    if mode == "switch":
-        q_win = q_packed_all.reshape(-1, N, W)
-        choice = banks.reshape(-1).tolist()      # the one host read
-        out = torch.empty((len(choice), N, cfg.M), dtype=torch.int32,
-                          device=q_packed_all.device)
-        for b in sorted(set(choice)):
-            wins = [i for i, c in enumerate(choice) if c == b]
-            q_sel, im_sel = _plan_columns_bank_major(
-                q_win[wins].reshape(-1, W), im, b, planes, cfg)
-            acc, _best, _top2 = fw.fused_scores(
-                q_sel.contiguous(), im_sel.contiguous(),
-                d_eff=int(cfg.d_eff_planned(b, planes)))
-            out[wins] = acc.reshape(len(wins), N, cfg.M)
-        return out.reshape(*lead, N, cfg.M)
-    if mode != "prefix":
-        raise ValueError(f"unknown fused dispatch mode {mode!r}")
     ham_p = plan_prefix_hamming(
         q_packed_all.reshape(-1, W), im, cfg, planes=planes, cap=cap,
     ).reshape(*lead, N, cfg.M, cap)
@@ -192,10 +173,45 @@ def full_scores_all(q_packed_all: torch.Tensor, im: ItemMemory,
     return prefix_select(ham_p, banks_rows, planes, cfg)
 
 
+def switch_scores(q_packed_all: torch.Tensor, im: ItemMemory, choice,
+                  cfg: TorrConfig, *, planes: int) -> torch.Tensor:
+    """Full-path integer accumulators through the switch dispatch:
+    ``choice`` holds each window's bank choice as host ints (the caller's
+    one host read, clamped to [1, cap]); each choice slices its enabled
+    words and one ``fused_scores`` pass scans them (the branch JAX's
+    ``lax.switch`` picks on the device). Windows that share a choice
+    share a launch. ``q_packed_all`` int32 [..., N, W] with one window per
+    entry of ``choice``; returns int32 [..., N, M], equal to
+    :func:`full_dot` under the same plan."""
+    lead, (N, W) = q_packed_all.shape[:-2], q_packed_all.shape[-2:]
+    q_win = q_packed_all.reshape(-1, N, W)
+    if len(choice) != q_win.shape[0]:
+        raise ValueError(f"{len(choice)} bank choices for {q_win.shape[0]} "
+                         "windows")
+
+    def scan(q, b):
+        q_sel, im_sel = _plan_columns_bank_major(q.reshape(-1, W), im, b,
+                                                 planes, cfg)
+        acc, _best, _top2 = fw.fused_scores(
+            q_sel.contiguous(), im_sel.contiguous(),
+            d_eff=int(cfg.d_eff_planned(b, planes)))
+        return acc.reshape(-1, N, cfg.M)
+
+    if len(set(choice)) == 1:
+        return scan(q_win, choice[0]).reshape(*lead, N, cfg.M)
+    rows = {}
+    for b in sorted(set(choice)):
+        wins = [i for i, c in enumerate(choice) if c == b]
+        rows.update(zip(wins, scan(torch.cat([q_win[i:i + 1] for i in wins]),
+                                   b)))
+    return torch.stack([rows[i] for i in range(len(choice))]).reshape(
+        *lead, N, cfg.M)
+
+
 def compact_full_scores(q_flat: torch.Tensor, full_mask: torch.Tensor,
                         banks_flat: torch.Tensor, im: ItemMemory,
                         cfg: TorrConfig, *, planes: int, cap: int,
-                        bucket_cap: int) -> torch.Tensor:
+                        bucket_cap: int, overflow: bool) -> torch.Tensor:
     """Compact-then-compute full-path accumulators: int32 [R, M], exact on
     every ``full_mask`` row and zero elsewhere (the apply pass never reads
     those).
@@ -206,14 +222,14 @@ def compact_full_scores(q_flat: torch.Tensor, full_mask: torch.Tensor,
     a row's bucket position is its rank among the full rows (a cumulative
     sum), unused positions point past the end and are dropped, so no
     compaction step reads the mask on the host. Each bucket row selects its
-    own window's bank boundary. The count of full rows is read on the host
-    once per call to pick between the bucket and, when it overflows the
-    tier, the hoisted all-rows pass — exact either way."""
+    own window's bank boundary. ``overflow`` is the caller's host read
+    (more full rows than ``bucket_cap``): it takes the hoisted all-rows
+    pass in place of the bucket, exact either way."""
     R = q_flat.shape[0]
     dev = q_flat.device
     bucket_cap = min(int(bucket_cap), R)
-    banks_flat = torch.clamp(torch.as_tensor(banks_flat, device=dev), 1, cap)
-    if int(torch.sum(full_mask)) > bucket_cap:   # overflow: hoisted pass
+    banks_flat = torch.clamp(banks_flat, 1, cap)
+    if overflow:                                  # the hoisted pass
         ham = plan_prefix_hamming(q_flat, im, cfg, planes=planes, cap=cap)
         acc = prefix_select(ham, banks_flat, planes, cfg)
         return torch.where(full_mask[:, None], acc, 0)

@@ -35,17 +35,29 @@ Full-path lowerings (``fused``), all bit-identical:
 
 ``serial=True`` runs the streams one after another through the
 single-window step (JAX's ``lax.map``).
+
+Each lowering is split at its host reads into segments, pure functions of
+tensors run through ``graphs.run`` (``core.capture``): eagerly by default,
+or replayed from a captured CUDA graph per static key (the engine's and
+``run_torr``'s ``jit``, ``repro``'s ``jax.jit``). One code path serves
+both. The prefix and off lowerings read nothing on the host: the whole
+step is one segment. Compact reads the full-path count once between its
+decide segment and its finish segment (``repro`` decides the same
+overflow on the device with a scalar ``lax.cond``). Switch reads each
+window's bank choice after Alg. 1's load gating, and its segment is keyed
+by that choice (the branch ``repro``'s ``lax.switch`` takes).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 
 import torch
 
 from ..device import resolve_device
 from . import aligner as al
-from . import policy, query_cache, reasoner
+from . import capture, policy, query_cache, reasoner
 from .item_memory import ItemMemory, plan_word_mask
 from .query_cache import CacheState
 from .types import (DECIDE_IDS, DECIDE_NONE, FUSED_IDS, PATH_BYPASS,
@@ -429,8 +441,8 @@ def _apply_pass_batched(state: TorrState, im: ItemMemory, q_packed_all,
                              key_all[sn, src_safe])
     cached_margin = torch.where(from_snap, snap_margin,
                                 margin_all[sn, src_safe])
-    eps = torch.tensor(cfg.margin_eps, dtype=torch.float32,
-                       device=s_all.device)
+    eps = torch.full((), cfg.margin_eps, dtype=torch.float32,
+                     device=s_all.device)
     match = torch.logical_and(
         torch.all(key_all == cached_key, dim=-1),
         torch.abs(margin_all - cached_margin) <= eps)
@@ -527,38 +539,47 @@ def _load_gates(valid, queue_depth, cfg: TorrConfig, plan):
     return n_valid, policy.high_load(n_valid, queue_depth, cfg), banks
 
 
-def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
-                               qd, cfg: TorrConfig, *, serial: bool, plan,
-                               bucket_cap, decide):
-    """The compact-then-compute lowering (``fused="compact"``):
+def _segment_key(name: str, cfg: TorrConfig, plan, im: ItemMemory, q,
+                 *host):
+    """A segment's graph key: its name, the static arguments, the item
+    memory's identity, the step's [S, N_max, W] shape and the host
+    values read before it."""
+    return (name, cfg, plan, id(im), tuple(q.shape), *host)
 
-      1. decide: the metadata-only Alg. 1 pass over every stream (it reads
-         the depth-K cache, never the item memory);
-      2. compact + compute: the full-path rows of all S windows share one
-         static bucket, and one bank-prefix pass scans only the bucket
-         (``aligner.compact_full_scores``);
-      3. apply: the batched apply when the decide pass was batched, else
-         (or when ``serial``) the per-proposal loop replays the decisions,
-         gathering full-path accumulators from the bucket and applying
-         Eq. 6 through the ``delta_update`` kernel.
 
-    The latched ``plan`` sets the planes and bank cap of every pass and the
-    tau offsets of the decide pass."""
-    planes, cap, cfg = _plan_static(plan, cfg)
-    S, N, W = q.shape
-    bcap = _resolve_bucket_cap(bucket_cap, plan, S * N)
+def _compact_decide(cache: CacheState, q, v, qd, *, cfg: TorrConfig, plan,
+                    decide_mode: str):
+    """The compact lowering's decide segment: Alg. 1's load gating, then
+    the batched (or scan) decide pass over every stream; it reads the
+    depth-K cache, never the item memory. Returns ``((n_valid, high,
+    banks), dec, aux, n_full)``, ``n_full`` the full-path count the
+    caller reads once on the host (``aux`` is None for the scan)."""
+    planes, _cap, cfg = _plan_static(plan, cfg)
     n_valid, high, banks = _load_gates(v, qd, cfg, plan)
-    decide_mode = _resolve_decide(decide)
     aux = None
     if decide_mode == "batched":
-        dec, aux = _decide_pass_batched_aux(state.cache, q, v, cfg, banks,
-                                            planes, high)
+        dec, aux = _decide_pass_batched_aux(cache, q, v, cfg, banks, planes,
+                                            high)
     else:
-        dec = _decide_pass(state.cache, q, v, cfg, banks, planes, high)
+        dec = _decide_pass(cache, q, v, cfg, banks, planes, high)
+    n_full = torch.sum(dec[0] == PATH_FULL, dtype=torch.int32)
+    return (n_valid, high, banks), dec, aux, n_full
+
+
+def _compact_finish(state: TorrState, q, v, b, qd, gates, dec, aux, *,
+                    im: ItemMemory, cfg: TorrConfig, plan, serial: bool,
+                    decide_mode: str, bcap: int, overflow: bool):
+    """The compact lowering's finish segment, keyed by the host's
+    ``overflow`` (full-path rows > ``bcap``): the bucket (or hoisted) scan,
+    then the batched apply, or the per-proposal loop replaying the
+    decisions, and the window's outputs."""
+    planes, cap, cfg = _plan_static(plan, cfg)
+    S, N, W = q.shape
+    n_valid, high, banks = gates
     acc_rows = al.compact_full_scores(
         q.reshape(S * N, W), (dec[0] == PATH_FULL).reshape(S * N),
         banks[:, None].expand(S, N).reshape(S * N), im, cfg, planes=planes,
-        cap=cap, bucket_cap=bcap).reshape(S, N, cfg.M)
+        cap=cap, bucket_cap=bcap, overflow=overflow).reshape(S, N, cfg.M)
     if aux is not None and not serial:
         return _apply_pass_batched(state, im, q, v, b, qd, cfg, banks,
                                    planes, high, n_valid, dec, aux, acc_rows,
@@ -573,6 +594,44 @@ def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
                           bucket_tier=bcap)
 
 
+def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
+                               qd, cfg: TorrConfig, *, serial: bool, plan,
+                               bucket_cap, decide, graphs):
+    """The compact-then-compute lowering (``fused="compact"``):
+
+      1. decide: the metadata-only Alg. 1 pass over every stream (it reads
+         the depth-K cache, never the item memory);
+      2. compact + compute: the full-path rows of all S windows share one
+         static bucket, and one bank-prefix pass scans only the bucket
+         (``aligner.compact_full_scores``);
+      3. apply: the batched apply when the decide pass was batched, else
+         (or when ``serial``) the per-proposal loop replays the decisions,
+         gathering full-path accumulators from the bucket and applying
+         Eq. 6 through the ``delta_update`` kernel.
+
+    Two segments: 1 (:func:`_compact_decide`), one host read of the
+    full-path count, then 2 and 3 (:func:`_compact_finish`) keyed by
+    whether that count overflows the bucket. The latched ``plan`` sets the
+    planes and bank cap of every pass and the tau offsets of the decide
+    pass."""
+    S, N, _W = q.shape
+    bcap = _resolve_bucket_cap(bucket_cap, plan, S * N)
+    decide_mode = _resolve_decide(decide)
+    gates, dec, aux, n_full = graphs.run(
+        _segment_key("decide", cfg, plan, im, q, decide_mode),
+        functools.partial(_compact_decide, cfg=cfg, plan=plan,
+                          decide_mode=decide_mode),
+        (state.cache, q, v, qd))
+    overflow = int(n_full) > bcap                  # the one host read
+    return graphs.run(
+        _segment_key("finish", cfg, plan, im, q, decide_mode, serial, bcap,
+                     overflow),
+        functools.partial(_compact_finish, im=im, cfg=cfg, plan=plan,
+                          serial=serial, decide_mode=decide_mode, bcap=bcap,
+                          overflow=overflow),
+        (state, q, v, b, qd, gates, dec, aux))
+
+
 def _stack(items):
     """Stack a list of same-typed dataclasses of tensors along a new [S]."""
     first = items[0]
@@ -583,10 +642,43 @@ def _stack(items):
         for f in dataclasses.fields(first)})
 
 
+def _batched_segment(state: TorrState, q, v, b, qd, *, im: ItemMemory,
+                     cfg: TorrConfig, plan, fused: str):
+    """The prefix and off lowerings as one segment (no host read): load
+    gating, the hoisted bank-prefix scan (prefix) and the per-proposal
+    loop."""
+    planes, cap, cfg = _plan_static(plan, cfg)
+    n_valid, high, banks = _load_gates(v, qd, cfg, plan)
+    acc_full_all = None
+    if fused == "prefix":
+        acc_full_all = al.full_scores_all(q, im, banks, cfg, planes=planes,
+                                          cap=cap)
+    cache, outs, telem = _window_loop(state, im, q, v, cfg, banks, high,
+                                      planes, acc_full_all)
+    return _finish_window(cache, state.task_weights, outs, telem, v, b, qd,
+                          banks, n_valid, high, planes,
+                          fused_mode=FUSED_IDS[fused])
+
+
+def _switch_segment(state: TorrState, q, v, b, qd, n_valid, high, banks, *,
+                    im: ItemMemory, cfg: TorrConfig, plan, choice):
+    """The switch lowering after its host read, keyed by ``choice`` (each
+    window's bank choice, host ints): one ``fused_scores`` pass per
+    choice, then the per-proposal loop with Eq. 6 through
+    ``delta_update``."""
+    planes, _cap, cfg = _plan_static(plan, cfg)
+    acc_full_all = al.switch_scores(q, im, choice, cfg, planes=planes)
+    cache, outs, telem = _window_loop(state, im, q, v, cfg, banks, high,
+                                      planes, acc_full_all, fused_delta=True)
+    return _finish_window(cache, state.task_weights, outs, telem, v, b, qd,
+                          banks, n_valid, high, planes,
+                          fused_mode=FUSED_IDS["switch"])
+
+
 def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
                            valid, boxes, queue_depth, cfg: TorrConfig,
                            serial: bool = False, plan=None, fused=None,
-                           bucket_cap=None, decide=None):
+                           bucket_cap=None, decide=None, graphs=None):
     """One step over S streams' windows: ``q_packed_all`` int32 [S, N_max,
     D//32], ``valid`` bool [S, N_max], ``boxes`` f32 [S, N_max, 4],
     ``queue_depth`` int32 [S]; every state leaf has a leading [S] axis.
@@ -606,44 +698,53 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
     the whole step (None = uncontrolled): it caps Alg. 1's bank choice
     (``min``; the full cap is a bit-exact no-op), selects the bit-slice
     planes every scan reads, and offsets the tau thresholds; each window's
-    telemetry records the ``banks`` and ``planes`` it ran with. The state
-    passed in is not modified."""
+    telemetry records the ``banks`` and ``planes`` it ran with.
+
+    ``graphs`` runs the step's segments: a
+    :class:`~repro_torch.core.capture.GraphFamily` replays one captured
+    CUDA graph per segment key, None runs them eagerly. The state passed
+    in is not modified."""
     if fused is None:
         fused = "switch" if serial else "prefix"
     if fused not in _FUSED_MODES:
         raise ValueError(f"fused={fused!r} not in {_FUSED_MODES}")
+    graphs = capture.EAGER if graphs is None else graphs
     q, v, b, qd = _as_batch(q_packed_all, valid, boxes, queue_depth,
                             im.device)
     if fused == "compact":
         return _multi_stream_compact_step(state, im, q, v, b, qd, cfg,
                                           serial=serial, plan=plan,
                                           bucket_cap=bucket_cap,
-                                          decide=decide)
+                                          decide=decide, graphs=graphs)
     if serial:
         steps = []
         for s in range(q.shape[0]):
             one = TorrState(cache=map_tensors(lambda x: x[s], state.cache),
                             task_weights=state.task_weights[s])
             steps.append(torr_window_step(one, im, q[s], v[s], b[s], qd[s],
-                                          cfg, plan=plan, fused=fused))
+                                          cfg, plan=plan, fused=fused,
+                                          graphs=graphs))
         return tuple(_stack(list(x)) for x in zip(*steps))
-    planes, cap, cfg = _plan_static(plan, cfg)
-    n_valid, high, banks = _load_gates(v, qd, cfg, plan)
-    acc_full_all = None
-    if fused != "off":
-        acc_full_all = al.full_scores_all(q, im, banks, cfg, planes=planes,
-                                          cap=cap, mode=fused)
-    cache, outs, telem = _window_loop(state, im, q, v, cfg, banks, high,
-                                      planes, acc_full_all,
-                                      fused_delta=fused == "switch")
-    return _finish_window(cache, state.task_weights, outs, telem, v, b, qd,
-                          banks, n_valid, high, planes,
-                          fused_mode=FUSED_IDS[fused])
+    if fused != "switch":
+        return graphs.run(
+            _segment_key(fused, cfg, plan, im, q),
+            functools.partial(_batched_segment, im=im, cfg=cfg, plan=plan,
+                              fused=fused),
+            (state, q, v, b, qd))
+    planes, cap, cfg_p = _plan_static(plan, cfg)
+    n_valid, high, banks = _load_gates(v, qd, cfg_p, plan)
+    # the one host read: each window's bank choice
+    choice = tuple(torch.clamp(banks, 1, cap).tolist())
+    return graphs.run(
+        _segment_key("switch", cfg, plan, im, q, choice),
+        functools.partial(_switch_segment, im=im, cfg=cfg, plan=plan,
+                          choice=choice),
+        (state, q, v, b, qd, n_valid, high, banks))
 
 
 def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
                      boxes, queue_depth, cfg: TorrConfig, plan=None,
-                     fused=None, bucket_cap=None, decide=None):
+                     fused=None, bucket_cap=None, decide=None, graphs=None):
     """Process one window; returns (new_state, detections, telemetry).
 
     ``q_packed_all`` int32 [N_max, D//32], ``valid`` bool [N_max], ``boxes``
@@ -652,7 +753,7 @@ def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
     window's bank choice, Eq. 6 through ``delta_update``), ``"prefix"``,
     ``"compact"`` (with ``bucket_cap`` and ``decide``) or ``"off"`` (the
     per-proposal oracle); all are bit-identical to ``repro``'s every
-    lowering, under any latched ``plan`` (see
+    lowering, under any latched ``plan``, eager or through ``graphs`` (see
     :func:`torr_multi_stream_step`)."""
     if fused is None:
         fused = "switch"
@@ -662,7 +763,7 @@ def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
                     task_weights=state.task_weights[None])
     st, out, tel = torr_multi_stream_step(
         one, im, q[None], v[None], b[None], qd[None], cfg, plan=plan,
-        fused=fused, bucket_cap=bucket_cap, decide=decide)
+        fused=fused, bucket_cap=bucket_cap, decide=decide, graphs=graphs)
     return (TorrState(cache=map_tensors(lambda x: x[0], st.cache),
                       task_weights=st.task_weights[0]),
             map_tensors(lambda x: x[0], out),
@@ -672,9 +773,9 @@ def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
 def torr_stream_batch_step(state: TorrState, im: ItemMemory,
                            batch: StreamBatch, cfg: TorrConfig,
                            serial: bool = False, plan=None, fused=None,
-                           bucket_cap=None, decide=None):
+                           bucket_cap=None, decide=None, graphs=None):
     """:func:`torr_multi_stream_step` over a packed :class:`StreamBatch`."""
     return torr_multi_stream_step(
         state, im, batch.q_packed, batch.valid, batch.boxes,
         batch.queue_depth, cfg, serial=serial, plan=plan, fused=fused,
-        bucket_cap=bucket_cap, decide=decide)
+        bucket_cap=bucket_cap, decide=decide, graphs=graphs)

@@ -13,7 +13,9 @@ from .types import PATH_BYPASS, PATH_DELTA, PATH_FULL, TorrConfig
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """``x`` rounded to a float32 scalar on ``like``'s device, written by a
+    fill (no host data crosses: the step's captured segments call it)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def high_load(n_objects: torch.Tensor, queue_depth: torch.Tensor,

@@ -71,8 +71,12 @@ def reset_slot(cache: CacheState, cfg: TorrConfig, slot: int) -> CacheState:
 
 
 def _set_rows(x: torch.Tensor, slot: torch.Tensor, value) -> torch.Tensor:
-    """Copy of ``x`` with row ``slot`` of each stream set to ``value``."""
+    """Copy of ``x`` with row ``slot`` of each stream set to ``value``. A
+    Python scalar becomes a tensor by a fill on ``x``'s device, so no host
+    data enters the step's captured segments."""
     y = x.clone()
+    if not isinstance(value, torch.Tensor):
+        value = torch.full((), value, dtype=x.dtype, device=x.device)
     if slot.dim() == 0:
         y[slot] = value
     else:

@@ -71,8 +71,8 @@ def gate_and_apply(scores: torch.Tensor, weights: torch.Tensor,
     """Sec. 4.5 gating. Returns (out [..., M], reasoner_active, new_key,
     new_margin)."""
     key, margin = topk_key_margin(scores, cfg)
-    eps = torch.tensor(cfg.margin_eps, dtype=torch.float32,
-                       device=scores.device)
+    eps = torch.full((), cfg.margin_eps, dtype=torch.float32,
+                     device=scores.device)
     match = torch.logical_and(
         torch.all(key == cached_key, dim=-1),
         torch.abs(margin - cached_margin) <= eps,

@@ -5,7 +5,7 @@ encode front-end.
     integer accumulation (``acc = D' - 2*hamming``) and the argmax / top-2
     readout, over a static plan's pre-sliced words. The switch lowering
     (the single-window step and the serial multi-stream step) runs it once
-    per window on its bank choice (``core.aligner.full_scores_all``).
+    per window on its bank choice (``core.aligner.switch_scores``).
   * :func:`bank_prefix_hamming` — one pass over the plan-capped word prefix
     emitting the hamming count at every bank boundary, int32 [N, M, cap]. The
     batched multi-stream step hoists it over its flattened S x N_max

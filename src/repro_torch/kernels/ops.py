@@ -3,7 +3,8 @@
 Bank gating contract: ``banks`` is a *static* int here, latched on the host
 per call, and each plan reads only its enabled words. Steps whose bank
 choice is a per-window tensor go through ``core.aligner.full_scores_all``
-(switch or bank-prefix dispatch) or ``core.aligner.compact_full_scores``.
+(bank-prefix dispatch), ``core.aligner.switch_scores`` (the bank choice
+read on the host) or ``core.aligner.compact_full_scores``.
 Unlike ``repro``'s wrappers these need no fallback to a plain version on
 ragged shapes: every CUDA kernel of the port takes any N and M.
 

@@ -2,21 +2,29 @@
 ``repro.perf.profile_cell``).
 
     PYTHONPATH=src python -m repro_torch.perf.profile_step \
-        [--lowering prefix,serial,compact] [--traffic served,reuse]
+        [--lowering prefix,serial,compact] [--traffic served,reuse] \
+        [--jit eager,captured]
 
 Serves the edge config's multi-stream workload (the one ``chip_smoke.py``
 drives: 16 streams in 16 slots) through ``StreamEngine`` on each named
 lowering — ``prefix`` (the batched step's default), ``serial`` (the serial
-switch engine) and ``compact`` (the compact dispatch, batched decide) — and
-traffic: ``served``, windows from ``simulate_sequence`` as
+switch engine) and ``compact`` (the compact dispatch, batched decide) —
+traffic — ``served``, windows from ``simulate_sequence`` as
 ``launch/serve.py`` makes them, or ``reuse``, the same streams cut to K
-proposals per window. Each pair runs 2 untimed warm-up steps, 3 steps timed
-on the host clock around ``sync()``, then one more step under
-``torch.profiler``, and prints one JSON object: the wall time per step,
-windows/s, the device busy time and idle share of the profiled step, its
-kernel launches, the kernels and host ops that take the most time, and the
-launches and device time of each of the port's hand-written kernels,
-after the card's name and power limit. Needs a GPU.
+proposals per window — and step mode: ``eager`` (``jit=False``) or
+``captured`` (``jit=True``, the step's segments replayed from CUDA
+graphs). Each triple runs 2 untimed warm-up steps (a captured engine
+captures its keys there), 3 steps timed on the host clock around
+``sync()``, then one more step under ``torch.profiler``, and prints one
+JSON object: the wall time per step, windows/s, the device busy time and
+idle share of the profiled step, the kernels the device ran in it, the
+CUDA runtime calls the host made (``host_launches``: kernel and graph
+launches and copies), the graphs replayed and their kernel nodes (counted
+at capture), the kernels that take the most device time, and the launches
+and device time of each of the port's hand-written kernels, after the
+card's name and power limit. The profile is read from the raw trace
+events, so a serial step's half million launches take seconds, not
+minutes. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ from ..serving import tood_pipelines as tp
 from ..serving.stream_engine import StreamEngine
 
 STREAMS, WARMUP, STEPS, TOP = 16, 2, 3, 12
+MODES = {"eager": False, "captured": True}
+# the CUDA runtime calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 # kernel (or kernels) -> the names of its device functions in csrc/
 PORT_KERNELS = {
     name: (f"{name}_kernel",) for name in (
@@ -81,13 +93,16 @@ def submit_step(eng, frames, t, words) -> None:
                    fr[t].boxes)
 
 
-def profile(cfg, sys_, world, lowering: str, traffic: str) -> dict:
-    """One (lowering, traffic) pair: warm-up, timed steps, a profiled step."""
+def profile(cfg, sys_, world, lowering: str, traffic: str,
+            mode: str) -> dict:
+    """One (lowering, traffic, mode): warm-up, timed steps, a profiled
+    step."""
     T = WARMUP + STEPS + 1
     frames = edge_windows(world, cfg, STREAMS, T,
                           cfg.N_max if traffic == "served" else cfg.K)
     R = torch.as_tensor(sys_.R).cuda()
-    eng = StreamEngine(cfg, sys_.im, n_slots=STREAMS, **LOWERINGS[lowering])
+    eng = StreamEngine(cfg, sys_.im, n_slots=STREAMS, jit=MODES[mode],
+                       **LOWERINGS[lowering])
     for s in range(STREAMS):
         eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
 
@@ -103,25 +118,31 @@ def profile(cfg, sys_, world, lowering: str, traffic: str) -> dict:
         t0 = time.perf_counter()
         one(t)
         walls.append(1e3 * (time.perf_counter() - t0))
+    graphs = eng.graphs
+    replays0, nodes0 = ((graphs.replays, graphs.nodes_replayed) if graphs
+                        else (0, 0))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         one(T - 1)
         prof_wall = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels, calls = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0, 0])
+            k[0] += 1
+            k[1] += e.duration_ns()
+        elif e.name().startswith("cuda"):
+            calls[e.name()] = calls.get(e.name(), 0) + 1
+    busy_ms = sum(ns for _, ns in kernels.values()) / 1e6
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     wall = float(np.median(walls))
     return {
         "device": torch.cuda.get_device_name(0),
-        "lowering": lowering, "traffic": traffic,
+        "lowering": lowering, "traffic": traffic, "mode": mode,
         "streams": STREAMS, "windows_per_step": STREAMS,
         "wall_ms_per_step": walls,
         "windows_per_s": 1e3 * STREAMS / wall,
@@ -130,23 +151,25 @@ def profile(cfg, sys_, world, lowering: str, traffic: str) -> dict:
         # against the untraced steps' median wall: the profiler slows the
         # host, not the kernels
         "idle_share": 1.0 - busy_ms / wall,
-        "kernel_launches": sum(e.count for e in kernels),
+        "device_ops": sum(n for n, _ in kernels.values()),
+        "host_launches": sum(calls.get(c, 0) for c in LAUNCH_CALLS),
+        "runtime_calls": calls,
+        "graphs": len(graphs) if graphs else 0,
+        "graph_replays": graphs.replays - replays0 if graphs else 0,
+        "graph_kernel_nodes_replayed": (graphs.nodes_replayed - nodes0
+                                        if graphs else 0),
         "top_kernels": [
-            {"name": e.key[:80], "count": e.count,
-             "ms": e.self_device_time_total / 1e3}
-            for e in top[:TOP]],
+            {"name": name[:80], "count": n, "ms": ns / 1e6}
+            for name, (n, ns) in top[:TOP]],
         # launches and device ms in the step of the port's hand-written
         # kernels, found by their device functions' names
         "port_kernels": {
-            name: {"count": sum(e.count for e in mine),
-                   "ms": sum(e.self_device_time_total for e in mine) / 1e3}
+            name: {"count": sum(n for n, _ in mine),
+                   "ms": sum(ns for _, ns in mine) / 1e6}
             for name, fns in PORT_KERNELS.items()
-            for mine in [[e for e in kernels
-                          if any(f in e.key for f in fns)]]},
-        "top_host_ops": [
-            {"name": e.key[:80], "count": e.count,
-             "self_cpu_ms": e.self_cpu_time_total / 1e3}
-            for e in host[:TOP]],
+            for mine in [[v for k, v in kernels.items()
+                          if any(f in k for f in fns)]]},
+        "cuda_memory_reserved_bytes": torch.cuda.memory_reserved(),
     }
 
 
@@ -156,9 +179,15 @@ def main(argv=None) -> int:
                     help=f"comma list of {sorted(LOWERINGS)}")
     ap.add_argument("--traffic", default="served",
                     help="comma list of served, reuse")
+    ap.add_argument("--jit", default="eager,captured",
+                    help=f"comma list of {sorted(MODES)}")
     args = ap.parse_args(argv)
     lowerings = args.lowering.split(",")
     traffics = args.traffic.split(",")
+    modes = args.jit.split(",")
+    for name in modes:
+        if name not in MODES:
+            ap.error(f"unknown step mode {name!r}")
     for name in lowerings:
         if name not in LOWERINGS:
             ap.error(f"unknown lowering {name!r}")
@@ -173,8 +202,9 @@ def main(argv=None) -> int:
     print(smi("name,power.limit"))
     for lowering in lowerings:
         for traffic in traffics:
-            print(json.dumps(profile(cfg, sys_, world, lowering, traffic),
-                             indent=1), flush=True)
+            for mode in modes:
+                print(json.dumps(profile(cfg, sys_, world, lowering, traffic,
+                                         mode), indent=1), flush=True)
     return 0
 
 

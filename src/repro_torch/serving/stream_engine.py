@@ -30,6 +30,16 @@ the hoisted lowering default and the reuse-aware compact dispatch
 predicted miss count). Every choice is bit-identical (compact overflow falls
 back exactly), so auto is purely a scheduling knob.
 
+``jit=True`` (the default, where ``repro`` has it) runs the step through
+the engine's :class:`~repro_torch.core.capture.GraphFamily`: each static
+key of a step segment (lowering, plan, bucket tier, decide pass, and the
+compact overflow or the switch bank choice read on the host) is captured
+once in a CUDA graph and replayed on every later step with that key;
+``warmup()`` captures the current key. ``jit=False`` runs the same step
+eagerly on the card, the comparison. On the CPU there is no graph and
+``jit=True`` runs the eager step, the plain path there. A capture or
+replay error raises; nothing falls back to the eager step.
+
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 """
 from __future__ import annotations
@@ -42,7 +52,7 @@ import numpy as np
 import torch
 
 from ..convert import words_from_numpy
-from ..core import pipeline, policy, query_cache
+from ..core import capture, pipeline, policy, query_cache
 from ..core.item_memory import ItemMemory
 from ..core.pipeline import TorrState, WindowOutput
 from ..core.types import (PATH_FULL, StreamBatch, TorrConfig,
@@ -90,13 +100,17 @@ class StreamEngine:
     """Fixed-slot scheduler feeding ``torr_multi_stream_step``."""
 
     def __init__(self, cfg: TorrConfig, im: ItemMemory, n_slots: int = 16,
-                 serial: bool = False, fused: str | None = None,
-                 bucket_cap: int | None = None, decide: str | None = None,
-                 *, device=None):
+                 jit: bool = True, serial: bool = False,
+                 fused: str | None = None, bucket_cap: int | None = None,
+                 decide: str | None = None, *, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.im = im.to(self.device)
         self.n_slots = n_slots
+        # the step's captured graphs (None: the eager step, on the CPU
+        # always); the state is each replay's output and the next's input
+        self.graphs = (capture.GraphFamily()
+                       if jit and self.device.type == "cuda" else None)
         # `serial` runs the slots one after another through the
         # single-window step; `fused` picks the full path's lowering (None
         # = the lowering's default, "off" = the per-proposal oracle,
@@ -273,7 +287,7 @@ class StreamEngine:
         self._state, out, tel = pipeline.torr_stream_batch_step(
             self._state, self.im, batch, self.cfg, serial=self._serial,
             plan=self._plan, fused=fused, bucket_cap=bucket_cap,
-            decide=decide)
+            decide=decide, graphs=self.graphs)
         if self._auto:      # deferred fold: this step's telemetry waits
             self._tel_backlog.append((tel.path, tel.n_valid))
             self.flush_telemetry(keep=1)
@@ -313,11 +327,13 @@ class StreamEngine:
     def warmup(self) -> None:
         """Run one all-pad step outside any timed region (a state no-op:
         every lane takes the pad branch) so the kernels are built and
-        loaded first; stats are not touched."""
+        loaded first, and with ``jit`` the current key's graphs are
+        captured (an all-pad step reads no overflow, and its switch bank
+        choice is that of an empty window); stats are not touched."""
         fused, bucket_cap, decide = self._resolve_fused()
         pipeline.torr_stream_batch_step(self._state, self.im,
                                         self._empty_batch(), self.cfg,
                                         serial=self._serial, plan=self._plan,
                                         fused=fused, bucket_cap=bucket_cap,
-                                        decide=decide)
+                                        decide=decide, graphs=self.graphs)
         self.sync()

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core import pipeline, reasoner
+from ..core import capture, pipeline, reasoner
 from ..core.item_memory import ItemMemory, build_item_memory
 from ..core.types import TorrConfig, map_tensors
 from ..data import tood_synth as ts
@@ -113,13 +113,16 @@ def run_torr(sys: TorrSystem, frames, task_id: int, queue_depth: int = 0,
     """The cache-gated pipeline over one stream's frames on the
     single-window step's default (switch) lowering; returns (per-frame max
     scores with -1e9 on padding, telemetry list on the CPU). Runs on
-    ``cuda`` unless ``device="cpu"``. ``words``, if given, holds each
-    frame's packed queries (int32 [N_max, D/32]) in place of the encode,
-    e.g. another device's, so that the rest of the pipeline can be held to
-    that device's run bit for bit."""
+    ``cuda`` unless ``device="cpu"``; on the card the step runs through a
+    :class:`~repro_torch.core.capture.GraphFamily` (one captured graph per
+    bank choice), as ``repro`` always jits it; on the CPU eagerly.
+    ``words``, if given, holds each frame's packed queries (int32 [N_max,
+    D/32]) in place of the encode, e.g. another device's, so that the rest
+    of the pipeline can be held to that device's run bit for bit."""
     dev = resolve_device(device)
     cfg = sys.cfg
     im = sys.im.to(dev)
+    graphs = capture.GraphFamily() if dev.type == "cuda" else None
     state = pipeline.init_state(cfg, sys.task_w[task_id], dev)
     R = torch.from_numpy(np.array(sys.R, np.float32)).to(dev)
     out, telems = [], []
@@ -130,7 +133,8 @@ def run_torr(sys: TorrSystem, frames, task_id: int, queue_depth: int = 0,
         state, res, tel = pipeline.torr_window_step(
             state, im, q, torch.as_tensor(f.valid, device=dev),
             torch.as_tensor(f.boxes, device=dev),
-            torch.tensor(queue_depth, dtype=torch.int32, device=dev), cfg)
+            torch.tensor(queue_depth, dtype=torch.int32, device=dev), cfg,
+            graphs=graphs)
         score = torch.amax(res.scores, dim=1).cpu().numpy().copy()
         score[~f.valid] = -1e9
         out.append(score)

@@ -14,3 +14,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (deselect with -m 'not slow' for tier-1 CI)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (skips without one; run them on the card "
+        "with -m cuda)",
+    )
