@@ -80,11 +80,30 @@ bit:
      plan, the telemetry's planes and bank cap checked, and the card's
      prefix engine equal to the CPU engine at two levels over the reuse
      windows;
-  9. a governed run: the compact engine at RT-60 under a ``Governor`` fed
-     by a ``DeadlineTracker`` and ``telemetry_cost``, one plan per step
-     (the async engine's dispatch loop, written out on the host), then its
-     ``plan_log`` replayed with ``set_plan`` on a fresh prefix engine,
-     bit-equal;
+  9. a governed run: ``AsyncStreamEngine`` on the compact lowering at
+     RT-60 with a ``DeadlineTracker`` and a ``Governor`` (its warm-up
+     captures every ladder level), 16 streams of the reuse windows fed
+     live, window t of every stream submitted at frame time t; it prints
+     p99, miss rate, shed, escalated, the ``plan_log`` and the graphs
+     captured inside the served loop with their seconds, and fails unless
+     a reduced plan was latched for a served step; then the run replayed
+     on a fresh sync prefix engine, each step's windows, queue depths and
+     plan as the async run served them, every served window and the final
+     caches bit-equal;
+ 9a. async == sync: ``AsyncStreamEngine(paused=True, tracker=None)`` on
+     the prefix and compact lowerings over both traffics' packed words of
+     phases 3 and 4, and on the serial switch engine over one window a
+     stream: every output, telemetry field and final cache bit-equal to
+     that lowering's captured sync run of phases 3-5 (serial switch: to a
+     captured sync engine's drain of the same windows); the sync drain's
+     and the async engine's ms/step and windows/s, then each run again
+     under torch.profiler: device busy ms and idle share against that
+     run's own wall time;
+ 9b. the launcher once: ``run_torr_streams(16, 4, rt="RT-60",
+     governor=True)`` with its metrics JSON, flight JSONL and Chrome trace
+     in a temporary directory; every window served or shed and at least
+     one served, the three artifacts parsed, the launches after the
+     engine's warm-up at least one ``bank_prefix_hamming`` a served step;
  10. eager == captured: every run of phases 3-5 and 8 again with
      ``StreamEngine(jit=False)`` (the switch stream without a graph
      family), on the same packed words: every output, telemetry field and
@@ -100,8 +119,9 @@ Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
 capture recorded (``GraphFamily``), so the counts keep their meaning.
 Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
-rows (captured and eager ms/step, windows/s, idle share) and the
-per-kernel report are printed as JSON before the last line, which is
+rows (captured and eager ms/step, windows/s, idle share), the async vs
+sync rows and the per-kernel report are printed as JSON before the last
+line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -110,6 +130,7 @@ import dataclasses
 import json
 import statistics
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -211,8 +232,9 @@ def bound(bytes_moved: float, t_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a, b = a.detach().cpu(), b.detach().cpu()
+def bits_equal(a, b) -> bool:
+    """Tensors (on any device) or host arrays, equal bit for bit."""
+    a, b = (torch.as_tensor(x).detach().cpu() for x in (a, b))
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and torch.equal(a, b)
@@ -1109,7 +1131,8 @@ def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs):
     """The multi-stream step's default (prefix) lowering on the card, its
     first ``cpu_windows`` windows checked bit-equal to the CPU engine;
     returns its results and the state after each step for the other
-    lowerings to be held to, and records the run for :func:`phase_eager`."""
+    lowerings to be held to, and its packed words; records the run for
+    :func:`phase_eager`."""
     eng, res, states, words, launches, step_ms = _serve_card(
         cfg, sys_, frames, report, label)
     _require_launched(label, launches,
@@ -1130,7 +1153,7 @@ def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs):
     _equal_to_cpu(cfg, sys_, frames, res, states, words, label, cpu_windows)
     _captured_run(runs, label, res, eng.state.cache, step_ms, len(eng.graphs),
                   _eager_serve(cfg, sys_, frames, label, words))
-    return res, states
+    return res, states, words
 
 
 def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
@@ -1142,7 +1165,7 @@ def phase_lowering(cfg, sys_, frames, report, label, base, kernels,
     over the first ``n_windows`` steps (all by default); the run is
     recorded for :func:`phase_eager`. Returns the per-step encodings and
     the engine's per-stream results."""
-    base_res, base_states = base
+    base_res, base_states, _words = base
     eng, res, states, words, launches, step_ms = _serve_card(
         cfg, sys_, frames, report, label, steps=n_windows, **engine_kw)
     _captured_run(runs, label, res, eng.state.cache, step_ms, len(eng.graphs),
@@ -1537,80 +1560,432 @@ def phase_plan_idle(cfg, sys_, served, rows):
                         for low, b in busy.items()))
 
 
+class FrameClock:
+    """The deadline tracker's clock: the host's monotonic clock, except on
+    a thread that pinned it to a frame's time, where it returns that time:
+    the arrival stamp of every window the thread submits meanwhile."""
+
+    def __init__(self):
+        self._pinned = threading.local()
+
+    def pin(self, t) -> None:
+        self._pinned.t = t
+
+    def __call__(self) -> float:
+        t = getattr(self._pinned, "t", None)
+        return time.monotonic() if t is None else t
+
+
+def _submit_futures(eng, frames, words, T):
+    """Submit window t < T of every stream ``cam<s>`` (its N_max rows of
+    step t's words) to an async engine. Returns each stream's futures."""
+    n = eng.cfg.N_max
+    futs = {f"cam{s}": [] for s in range(len(frames))}
+    for t in range(T):
+        for s, fr in enumerate(frames):
+            futs[f"cam{s}"].append(eng.submit(
+                f"cam{s}", words[t][s * n:(s + 1) * n], fr[t].valid,
+                fr[t].boxes))
+    return futs
+
+
+def _admit_all(eng, sys_, S):
+    for s in range(S):
+        eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
+
+
+def _captures_after(graphs, n0):
+    """The captures a graph family made after its first ``n0``, as
+    (segment, seconds)."""
+    return [(name, round(sec, 3)) for name, sec in graphs.captures[n0:]]
+
+
 def phase_governed(cfg, sys_, frames):
-    """The compact engine under the QoS governor at RT-60 (phase 9): each
-    step the tightest window's slack, the tracker's step EMA and the
-    backlog pick the plan; each served window's modeled energy feeds the
-    governor back. Then the plan log replayed on a fresh prefix engine."""
+    """The compact lowering under the QoS governor at RT-60 through
+    ``AsyncStreamEngine`` (phase 9), fed live, twice: see
+    :func:`_governed_run`. First under the RT-60 admission policy as
+    served, shedding on: which windows it sheds depends on the host's
+    timing (a window that waits for the engine lock past budget + margin
+    is shed, and one slow step lifts the step EMA past that for every
+    later window, since shed windows measure no step), so that run is
+    replayed bit-equal and reported, and no plan is required of it. Then
+    with shedding off (``allow_shed=False``: a late window is escalated,
+    never dropped): every window is served, and the governor must latch a
+    reduced plan for a served step, since a compact step of 16 streams
+    (16 ms on the card before its host work) exceeds level 0's usable
+    slack (the budget less the governor's 25 % margin, 12.5 ms)."""
+    from repro_torch.perf.profile_step import encode_step
+
+    R = torch.as_tensor(sys_.R).cuda()
+    words = [encode_step(frames, t, R) for t in range(len(frames[0]))]
+    _governed_run(cfg, sys_, frames, words, allow_shed=True)
+    levels = _governed_run(cfg, sys_, frames, words, allow_shed=False)
+    if not any(levels):
+        raise AssertionError("governed, shedding off: the governor latched "
+                             "no reduced plan for a served step")
+
+
+def _governed_run(cfg, sys_, frames, words, allow_shed):
+    """One governed run: a ``DeadlineTracker`` (RT-60, shedding as
+    ``allow_shed`` says), a ``Governor``, the reuse windows fed live to
+    the running engine, window t of every stream
+    submitted at frame time t (frames one RT-60 budget apart) and stamped
+    with it; the dispatcher gates each head window and latches the
+    governor's plan each step, the collector feeds the measured step back
+    to the tracker and each window's modeled energy to the governor. Each
+    dispatched step's windows and queue-depth lanes are recorded. Then the
+    run replayed on a fresh sync prefix engine: before each step the
+    windows it served are submitted, behind the windows of their streams
+    shed before them (the replay's gate sheds those again), the step's
+    recorded queue depths replace the replay's, and the governor's log
+    gives its plan; every served window and the final caches bit-equal.
+    With shedding off every window must be served. Returns the plan level
+    of each served step."""
     from repro_torch.configs.torr_edge import rt_budget_s
     from repro_torch.control import Governor, build_ladder, policy_for
     from repro_torch.kernels import build
-    from repro_torch.perf.cycle_model import telemetry_cost
-    from repro_torch.perf.profile_step import encode_step, submit_step
+    from repro_torch.obs import FlightRecorder, Tracer
     from repro_torch.serving import deadline
-    from repro_torch.serving.stream_engine import StreamEngine
+    from repro_torch.serving.async_engine import AsyncStreamEngine
+    from repro_torch.serving.stream_engine import (GATE_ADMIT, GATE_SHED,
+                                                   StreamEngine)
 
-    S, T = len(frames), len(frames[0])
+    S, T, n = len(frames), len(frames[0]), cfg.N_max
     budget = rt_budget_s(GOVERNED_RT)
-    R = torch.as_tensor(sys_.R).cuda()
-    words = [encode_step(frames, t, R) for t in range(T)]
-    tracker = deadline.DeadlineTracker(deadline.policy_for(GOVERNED_RT))
+    clock = FrameClock()
+    tracker = deadline.DeadlineTracker(
+        deadline.policy_for(GOVERNED_RT, allow_shed=allow_shed), clock=clock)
+    label = "shedding on" if allow_shed else "shedding off"
     gov = Governor(cfg, policy_for(GOVERNED_RT))
+    tracer, flight = Tracer(), FlightRecorder()
+    batches = []     # each dispatched step's (window seqs, queue depths)
 
-    def engine(**kw):
-        eng = StreamEngine(cfg, sys_.im, n_slots=S, **kw)
-        eng.warmup()
-        for s in range(S):
-            eng.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
-        for t, w in enumerate(words):
-            submit_step(eng, frames, t, w)
-        return eng
+    class Recorded(AsyncStreamEngine):
+        def _dispatch(self, q, v, b, qd):
+            batches.append(([c.seq for c in self._step_ctxs],
+                            qd.numpy().copy()))
+            return super()._dispatch(q, v, b, qd)
 
-    eng = engine(fused="compact")
-    # window t of every stream left the camera at frame time t
-    t0 = tracker.now()
-    arrival = [t0 + t * budget for t in range(T)]
-    res = {f"cam{s}": [] for s in range(S)}
-    step_ms = []
-    build.reset_launches()
-    for t in range(T):
-        slack = budget - (tracker.now() - arrival[t])
-        eng.set_plan(gov.update(slack, tracker.step_ema_s,
-                                backlog=T - 1 - t, n_windows=S))
-        t1 = time.perf_counter()
-        out = eng.step()
-        eng.sync()
-        dur = time.perf_counter() - t1
-        tracker.observe_step(dur)
-        step_ms.append(1e3 * dur)
-        for sid, (o, tel) in out.items():
-            res[sid].append((o, tel))
-            gov.observe_energy(1e3 * telemetry_cost(
-                tel, cfg, budget, window_scale=60.0 * budget).energy_j)
-            tracker.complete(arrival[t])
-    launches = dict(build.LAUNCHES)
+    def window(s, t):
+        return (f"cam{s}", words[t][s * n:(s + 1) * n], frames[s][t].valid,
+                frames[s][t].boxes)
+
+    eng = Recorded(cfg, sys_.im, n_slots=S, fused="compact", tracker=tracker,
+                   governor=gov, paused=True, tracer=tracer, flight=flight)
+    try:
+        t_warm = time.perf_counter()
+        eng.warmup()     # every ladder level's first key
+        warm_s = time.perf_counter() - t_warm
+        n_warm = len(eng.graphs.captures)
+        _admit_all(eng, sys_, S)
+        futs = {f"cam{s}": [] for s in range(S)}
+        build.reset_launches()
+        eng.start()
+        t0 = time.monotonic()
+        for t in range(T):   # the camera: frame t leaves at t0 + t * budget
+            at = t0 + t * budget
+            time.sleep(max(0.0, at - time.monotonic()))
+            clock.pin(at)
+            for s in range(S):
+                futs[f"cam{s}"].append(eng.submit(*window(s, t)))
+            clock.pin(None)
+        eng.flush(timeout=600)
+        wall = time.monotonic() - t0
+        launches = dict(build.LAUNCHES)
+        res, shed = {sid: [] for sid in futs}, 0
+        for sid, fs in futs.items():
+            for f in fs:
+                try:
+                    res[sid].append(f.result(timeout=60))
+                except deadline.WindowShed:
+                    shed += 1
+        cache = eng.state.cache
+    finally:
+        eng.close()
+    summ = tracker.summary()
+    steps = eng.stats.steps
+    levels = [level for _b, _p, level in gov.plan_log]
+    # the engine lock is held through both dispatcher spans of a step: the
+    # assembly and gate (host_decide), then the copies in, the decide
+    # graph, the host read of the full-path count and the finish graph
+    # (dispatch_enqueue); every window of a step carries the same spans
+    held = {phase: statistics.median(
+        e["dur_us"] / 1e3 for ctx in tracer.completed() for e in ctx.events
+        if e["phase"] == phase) if steps else float("nan")
+        for phase in ("host_decide", "dispatch_enqueue")}
+    step_ms = [round(1e3 * r["step_latency_s"], 2) for r in flight.records()]
+    log(f"[governed, {label}] AsyncStreamEngine, compact, {GOVERNED_RT} "
+        f"({1e3 * budget:.2f} ms), {S} streams x {T} windows fed live at "
+        f"frame times: {eng.stats.windows} served, {shed} shed in {steps} "
+        f"steps (windows a step {[len(w) for w, _ in batches]}, step "
+        f"latency ms {step_ms}), wall "
+        f"{wall:.3f} s; deadline p99 {summ['p99_ms']:.2f} ms, miss_rate "
+        f"{summ['miss_rate']:.3f}, shed {summ['shed']}, escalated "
+        f"{summ['escalated']}, step EMA {summ['step_ema_ms']:.2f} ms; "
+        f"engine lock held a step (median ms): host_decide "
+        f"{held['host_decide']:.3f}, dispatch_enqueue "
+        f"{held['dispatch_enqueue']:.3f}; "
+        f"plan_log {gov.plan_log}; governor {gov.summary()}; warm-up "
+        f"{warm_s:.3f} s ({n_warm} captures, every ladder level); captures "
+        f"after warm-up {_captures_after(eng.graphs, n_warm)}; launches "
+        f"{launches}")
+    if eng.stats.windows + shed != S * T:
+        raise AssertionError("governed: windows neither served nor shed")
+    if not allow_shed and shed:
+        raise AssertionError(f"governed, {label}: {shed} windows shed")
+    if len(batches) != steps or len(levels) != steps:
+        raise AssertionError(f"governed: {steps} steps, {len(batches)} "
+                             f"recorded, {len(levels)} plans logged")
     _require_launched("governed", launches,
                       ("packed_hamming_batched", "bank_prefix_hamming"))
-    summ = tracker.summary()
-    log(f"[governed] compact engine, {GOVERNED_RT} ({1e3 * budget:.2f} ms), "
-        f"{S} streams x {T} windows: plan_log {gov.plan_log}; ms/step "
-        f"{[round(x, 2) for x in step_ms]}; governor {gov.summary()}; "
-        f"deadline p99 {summ['p99_ms']:.1f} ms, miss_rate "
-        f"{summ['miss_rate']:.3f}; launches {launches}")
 
+    # window seq k is stream k % S's window k // S (one submitting thread)
+    ctxs = sorted(tracer.completed(), key=lambda c: c.seq)
+    if [c.stream_id for c in ctxs] != [f"cam{k % S}" for k in range(S * T)]:
+        raise AssertionError("governed: traced windows out of order")
+    shed_seqs = {c.seq for c in ctxs if c.decision == "shed"}
+
+    class Replay(StreamEngine):
+        qd_next = None
+
+        def _assemble(self, gate=None):
+            # a slot's queue holds its shed windows, then the served one
+            q, v, b, qd, served = super()._assemble(
+                lambda _sid, backlog, _extra:
+                    GATE_SHED if backlog else GATE_ADMIT)
+            qd.copy_(torch.from_numpy(self.qd_next))
+            return q, v, b, qd, served
+
+    replay = Replay(cfg, sys_.im, n_slots=S)
+    _admit_all(replay, sys_, S)
     ladder = build_ladder(cfg)
-    replay = engine()
-    res2 = {sid: [] for sid in res}
-    for _banks, _planes, level in gov.plan_log:
+    fed, got = [0] * S, {sid: [] for sid in res}
+    for (seqs, qd), level in zip(batches, levels):
+        for seq in seqs:
+            s, t = seq % S, seq // S
+            if any(u * S + s not in shed_seqs for u in range(fed[s], t)):
+                raise AssertionError(f"governed: cam{s} window {t} served "
+                                     f"past an unshed window")
+            for u in range(fed[s], t + 1):
+                replay.submit(*window(s, u))
+            fed[s] = t + 1
+        replay.qd_next = qd
         replay.set_plan(ladder[level])
-        for sid, r in replay.step().items():
-            res2[sid].append(r)
+        out = replay.step()
+        if sorted(out) != sorted(f"cam{seq % S}" for seq in seqs):
+            raise AssertionError("governed replay: another batch assembled")
+        for sid, r in out.items():
+            got[sid].append(r)
     replay.sync()
-    _assert_results_equal("governed replay", res, res2, skip=LOWERING_FIELDS)
-    _assert_caches_equal("governed replay", eng.state.cache,
-                         replay.state.cache)
-    log(f"[governed] plan_log replayed with set_plan on a fresh prefix "
-        f"engine: every window and the final caches bit-equal")
+    for sid in res:
+        if len(got[sid]) != len(res[sid]):
+            raise AssertionError(f"governed replay {sid}: {len(got[sid])} "
+                                 f"windows, {len(res[sid])} served")
+    _assert_results_equal("governed replay", res, got, skip=LOWERING_FIELDS)
+    _assert_caches_equal("governed replay", cache, replay.state.cache)
+    log(f"[governed, {label}] replayed on a fresh sync prefix engine, "
+        f"each step's windows, queue depths and plan (levels {levels}) as "
+        f"served: every "
+        f"served window and the final caches bit-equal")
+    return levels
+
+
+def _drain_timed(run, profile):
+    """``run`` on the host clock; with ``profile`` under torch.profiler,
+    its wall time still taken around ``run`` alone inside the profiled
+    region (the profiler's start and the processing of its trace left
+    out), beside the device busy ms of that same run. Returns (seconds,
+    busy ms or None)."""
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        run()
+        wall.append(time.perf_counter() - t0)
+
+    busy = _device_busy_ms(timed) if profile else timed()
+    return wall[0], busy
+
+
+def _sync_pass(eng, sys_, frames, words, T, profile=False):
+    """Every window queued first, then ``step`` until drained and one
+    sync, on the host clock (or, with ``profile``, under torch.profiler:
+    the device busy ms); the streams retired after. Returns the results,
+    the final cache, the seconds and the device busy ms (None)."""
+    from repro_torch.perf.profile_step import submit_step
+
+    S = len(frames)
+    _admit_all(eng, sys_, S)
+    for t in range(T):
+        submit_step(eng, frames, t, words[t])
+    res = {f"cam{s}": [] for s in range(S)}
+
+    def run():
+        while eng.busy:
+            for sid, r in eng.step().items():
+                res[sid].append(r)
+        eng.sync()
+
+    wall, busy = _drain_timed(run, profile)
+    cache = eng.state.cache
+    for s in range(S):
+        eng.retire(f"cam{s}")
+    return res, cache, wall, busy
+
+
+def _async_pass(cfg, sys_, frames, words, T, profile=False, **kw):
+    """A paused ``AsyncStreamEngine`` (warmed up, its workers started after
+    every window is queued) over the same windows: from ``start`` to the
+    end of ``flush`` on the host clock (or under torch.profiler). Returns
+    the host results, the final cache, the seconds, the device busy ms,
+    the launches, the engine and its captures after the warm-up."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.async_engine import AsyncStreamEngine
+
+    S = len(frames)
+    eng = AsyncStreamEngine(cfg, sys_.im, n_slots=S, paused=True, **kw)
+    try:
+        eng.warmup()
+        n_warm = len(eng.graphs.captures)
+        _admit_all(eng, sys_, S)
+        futs = _submit_futures(eng, frames, words, T)
+        build.reset_launches()
+
+        def run():
+            eng.start()
+            eng.flush(timeout=600)
+            torch.cuda.synchronize()
+
+        wall, busy = _drain_timed(run, profile)
+        launches = dict(build.LAUNCHES)
+        res = {sid: [f.result(timeout=60) for f in fs]
+               for sid, fs in futs.items()}
+        cache = eng.state.cache
+    finally:
+        eng.close()
+    return (res, cache, wall, busy, launches, eng,
+            _captures_after(eng.graphs, n_warm))
+
+
+def phase_async(cfg, sys_, cases, runs):
+    """Async == sync (phase 9a): ``AsyncStreamEngine(paused=True,
+    tracker=None)`` on the prefix and compact lowerings over both traffics'
+    packed words of phases 3 and 4, and the serial switch engine over the
+    served traffic's first window a stream (its profiled step alone takes
+    some 15 s): every output, telemetry field and final cache bit-equal to
+    that lowering's captured sync run of phases 3-5 (serial switch: to a
+    captured sync engine's drain of the same windows). Each
+    engine's ms/step and windows/s (every window queued first: the drain
+    to its sync, the workers' start to the end of ``flush``), then the
+    same run again under torch.profiler: its device busy ms and, against
+    its own wall time, the idle share (1 - busy / wall); one summary
+    line."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.stream_engine import StreamEngine
+
+    by_label = {r["label"]: r for r in runs}
+    rows = []
+    for label, frames, words, T, ref_label, kernels, kw in cases:
+        t_case = time.perf_counter()
+        S = len(frames)
+        sync = StreamEngine(cfg, sys_.im, n_slots=S, **kw)
+        sync.warmup()
+        build.reset_launches()
+        res_s, cache_s, wall_s, _ = _sync_pass(sync, sys_, frames, words, T)
+        _require_launched(f"{label} sync", dict(build.LAUNCHES), kernels)
+        _, _, pwall_s, busy_s = _sync_pass(sync, sys_, frames, words, T,
+                                           profile=True)
+        res_a, cache_a, wall_a, _, launches, eng, captured = _async_pass(
+            cfg, sys_, frames, words, T, **kw)
+        _require_launched(f"{label} async", launches, kernels)
+        # the lowering's captured sync run of phases 3-5 where there is
+        # one (the same windows queued the same way), else this drain
+        what, other, other_cache = (
+            ("the sync drain", res_s, cache_s) if ref_label is None else
+            (f"the captured sync run '{ref_label}'",
+             by_label[ref_label]["res"], by_label[ref_label]["cache"]))
+        _assert_results_equal(f"{label} async vs {what}", res_a, other)
+        _assert_caches_equal(f"{label} async vs {what}", cache_a,
+                             other_cache)
+        _, _, pwall_a, busy_a, *_ = _async_pass(cfg, sys_, frames, words, T,
+                                                profile=True, **kw)
+        steps = eng.stats.steps
+        row = dict(label=label, steps=steps, windows=eng.stats.windows,
+                   sync_ms_per_step=1e3 * wall_s / steps,
+                   async_ms_per_step=1e3 * wall_a / steps,
+                   sync_windows_per_s=eng.stats.windows / wall_s,
+                   async_windows_per_s=eng.stats.windows / wall_a,
+                   sync_busy_ms=busy_s, async_busy_ms=busy_a,
+                   sync_profiled_ms=1e3 * pwall_s,
+                   async_profiled_ms=1e3 * pwall_a,
+                   sync_idle=1.0 - busy_s / (1e3 * pwall_s),
+                   async_idle=1.0 - busy_a / (1e3 * pwall_a),
+                   captures_after_warmup=captured)
+        rows.append(row)
+        log(f"[async == sync] {label}: outputs, telemetry and final caches "
+            f"bit-equal to {what}; "
+            f"{steps} steps, ms/step sync {row['sync_ms_per_step']:.2f} / "
+            f"async {row['async_ms_per_step']:.2f}, windows/s "
+            f"{row['sync_windows_per_s']:.1f} / "
+            f"{row['async_windows_per_s']:.1f}; profiled run: device busy "
+            f"ms {busy_s:.2f} / {busy_a:.2f} of wall ms "
+            f"{row['sync_profiled_ms']:.2f} / {row['async_profiled_ms']:.2f}"
+            f", idle share "
+            f"{row['sync_idle']:.4f} / {row['async_idle']:.4f}; captures "
+            f"after the async warm-up {captured}; launches {launches}; "
+            f"{time.perf_counter() - t_case:.1f} s")
+    log("[async vs sync] ms/step sync / async: " + "; ".join(
+        f"{r['label']} {r['sync_ms_per_step']:.2f} / "
+        f"{r['async_ms_per_step']:.2f}" for r in rows))
+    return rows
+
+
+def phase_launcher():
+    """The port's launcher once (phase 9b): ``run_torr_streams(16, 4,
+    rt="RT-60", governor=True)`` with the three artifacts into a temporary
+    directory; every submitted window served or shed, at least one served,
+    all three artifacts parse, and the launches counted after the engine's
+    warm-up (which captures and replays every ladder level) show the
+    encode once a stream and ``bank_prefix_hamming`` once a served step."""
+    import tempfile
+
+    from repro_torch.launch.serve import run_torr_streams
+    from repro_torch.obs import load_jsonl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: str(Path(tmp) / name) for k, name in (
+            ("metrics_json", "metrics.json"), ("flight_jsonl", "flight.jsonl"),
+            ("trace_json", "trace.json"))}
+        t0 = time.perf_counter()
+        res = run_torr_streams(STREAMS, WINDOWS, rt=GOVERNED_RT,
+                               governor=True, **paths)
+        wall = time.perf_counter() - t0
+        launches = res["launches"]
+        snap = json.loads(Path(paths["metrics_json"]).read_text())
+        recs = load_jsonl(paths["flight_jsonl"])
+        doc = json.loads(Path(paths["trace_json"]).read_text())
+    if res["lost"] or res["served"] + res["shed"] != res["submitted"] \
+            or res["submitted"] != STREAMS * WINDOWS or not res["served"]:
+        raise AssertionError(f"launcher: {res['submitted']} submitted, "
+                             f"{res['served']} served, {res['shed']} shed")
+    # the prefix lowering's graph holds one bank_prefix_hamming node
+    if launches["sign_project_pack"] < STREAMS or res["steps"] < 1 or \
+            launches["bank_prefix_hamming"] < res["steps"]:
+        raise AssertionError(f"launcher: {res['steps']} steps served, "
+                             f"launches after the warm-up {launches}")
+    steps = [r for r in recs if "n_windows" in r]
+    if sum(r["n_windows"] for r in steps) != res["served"] or \
+            not doc["traceEvents"] or \
+            snap["metrics"]["torr_windows_total"]["series"][0]["value"] \
+            != res["served"]:
+        raise AssertionError("launcher: artifacts disagree with the run")
+    log(f"[launcher] run_torr_streams({STREAMS}, {WINDOWS}, rt="
+        f"{GOVERNED_RT}, governor=True) on the card: {res['submitted']} "
+        f"submitted, {res['served']} served, {res['shed']} shed, 0 lost; "
+        f"{len(steps)} flight records, {len(doc['traceEvents'])} trace "
+        f"events, {len(snap['metrics'])} metric families; {wall:.2f} s "
+        f"with the build of its system; {res['steps']} steps; launches "
+        f"after the warm-up {launches}")
 
 
 def main() -> int:
@@ -1700,7 +2075,22 @@ def main() -> int:
     rows = phase_plans(cfg, sys_, served, reuse, runs)
     done("plan ladder")
     phase_governed(cfg, sys_, reuse)
-    done("governed")
+    done("governed (async)")
+    async_rows = phase_async(cfg, sys_, (
+        ("prefix, served", served, base[2], WINDOWS, "serve",
+         ("bank_prefix_hamming",), {}),
+        ("prefix, reuse", reuse, base_reuse[2], REUSE_WINDOWS,
+         f"reuse, windows cut to K={cfg.K} proposals",
+         ("bank_prefix_hamming",), {}),
+        ("compact, served", served, base[2], WINDOWS, "compact, served",
+         compact_kernels, dict(fused="compact")),
+        ("compact, reuse", reuse, base_reuse[2], REUSE_WINDOWS,
+         "compact, reuse", compact_kernels, dict(fused="compact")),
+        ("serial switch, served", served, base[2], 1, None,
+         ("fused_scores", "delta_update"), dict(serial=True))), runs)
+    done("async == sync")
+    phase_launcher()
+    done("launcher")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -1710,6 +2100,7 @@ def main() -> int:
         raise AssertionError(f"never launched on a path: {missing}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"plan_ladder": rows}))
+    print(json.dumps({"async_vs_sync": async_rows}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,3 +33,9 @@ def torr_edge(rt: str = "RT-60", **overrides) -> TorrConfig:
         feat_dim=512,
     )
     return dataclasses.replace(base, **overrides) if overrides else base
+
+
+def torr_edge_no_reuse(rt: str = "RT-60") -> TorrConfig:
+    """Ablation: thresholds that never fire, so every window takes the full
+    path (the SNN + naive-HDC baseline)."""
+    return torr_edge(rt, tau_byp=2.0, tau_q=2.0)

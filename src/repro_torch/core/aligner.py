@@ -11,8 +11,13 @@ import torch
 
 from ..kernels import fused_window as fw
 from . import hdc
-from .item_memory import ItemMemory, pmajor_bank_blocks
+from .item_memory import ItemMemory, pmajor_bank_blocks, word_mask
 from .types import TorrConfig
+
+# torch._int_mm's shapes on CUDA: more than 16 rows, the inner dimension and
+# the columns multiples of 8
+INT_MM_MIN_ROWS = 17
+INT_MM_ALIGN = 8
 
 
 def full_dot(q_packed: torch.Tensor, im: ItemMemory,
@@ -104,6 +109,36 @@ def readout(acc: torch.Tensor, d_eff) -> torch.Tensor:
     """Cosine scores from integer accumulators (normalization 'shift')."""
     d_eff = torch.as_tensor(d_eff, device=acc.device).to(torch.float32)
     return acc.to(torch.float32) / d_eff
+
+
+def full_scores(q_packed: torch.Tensor, im: ItemMemory, cfg: TorrConfig,
+                banks):
+    """Convenience: (acc int32 [..., M], cosine f32 [..., M]) for a full
+    scan."""
+    wmask = word_mask(cfg, banks, q_packed.device)
+    acc = full_dot(q_packed, im, wmask)
+    d_eff = torch.as_tensor(banks, dtype=torch.int32,
+                            device=q_packed.device) * cfg.bank_dims
+    return acc, readout(acc, d_eff)
+
+
+def full_dot_mxu(q_bipolar: torch.Tensor, im: ItemMemory,
+                 dmask: torch.Tensor) -> torch.Tensor:
+    """Beyond-paper alternative: the bipolar dot as a tensor-core matmul.
+
+    ``repro`` runs it as a bf16 product on the MXU; here it is
+    ``torch._int_mm`` (int8 operands, int32 accumulation) on the +-1 codes
+    masked by ``dmask``, exact at any D. The rows are padded to the shapes
+    ``_int_mm`` takes on CUDA. q_bipolar: int8 [..., D]; returns int32 dots
+    [..., M]."""
+    D, M = q_bipolar.shape[-1], im.M
+    q = torch.where(dmask, q_bipolar, 0).to(torch.int8).reshape(-1, D)
+    n = q.shape[0]
+    q = torch.nn.functional.pad(q, (0, 0, 0, max(n, INT_MM_MIN_ROWS) - n))
+    cols = -(-M // INT_MM_ALIGN) * INT_MM_ALIGN
+    h = torch.nn.functional.pad(im.bipolar, (0, 0, 0, cols - M))
+    dots = torch._int_mm(q, h.T)[:n, :M]
+    return dots.reshape(*q_bipolar.shape[:-1], M)
 
 
 # ---------------------------------------------------------------------------

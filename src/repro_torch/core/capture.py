@@ -29,6 +29,15 @@ launches on the host (``kernels.build.LAUNCHES``); a capture records
 launches without running them, so the family takes the capture's counts
 back out and adds them on every replay, which runs those kernels.
 
+A capture is thread-local (``capture_error_mode="thread_local"``): the
+async engine's dispatcher captures a new key while its collector copies
+results and callers submit windows, and only the capturing thread's
+calls are held to the rules of a capture. The cyclic garbage collector
+is held off while a graph is captured (:func:`collection_paused`): a
+collection on the capturing thread can free the graphs of an engine that
+is no longer referenced, and destroying a graph there invalidates the
+capture. ``captures`` records each capture's segment name and seconds.
+
 No fallback: a capture or replay error raises; nothing reruns the step
 eagerly. On the CPU there is no graph: :data:`EAGER` runs each segment as
 it is, the plain path there, as a kernel wrapper's plain version is on a
@@ -36,14 +45,41 @@ CPU tensor (``StreamEngine(jit=True, device="cpu")`` uses it).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import gc
+import threading
+import time
 
 import torch
 
 from ..kernels import build
 
 CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+# captures in progress on any thread, and whether the collector was on before
+# the first of them
+_gc_lock = threading.Lock()
+_gc_hold = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def collection_paused():
+    """The cyclic garbage collector off (for every thread) until the last
+    of the nested or concurrent ``with`` blocks exits, then as it was."""
+    with _gc_lock:
+        if _gc_hold["captures"] == 0:
+            _gc_hold["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_hold["captures"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_hold["captures"] -= 1
+            if _gc_hold["captures"] == 0 and _gc_hold["was_enabled"]:
+                gc.enable()
 
 
 def tree_map(fn, obj):
@@ -118,12 +154,15 @@ class GraphFamily:
     """One captured CUDA graph per segment key, replayed on later calls.
 
     ``replays`` and ``nodes_replayed`` count on the host, like
-    ``LAUNCHES``: the graphs replayed and their kernel nodes."""
+    ``LAUNCHES``: the graphs replayed and their kernel nodes; ``captures``
+    holds (segment name, seconds) of every capture, its side-stream
+    warm-up and instantiation included."""
 
     def __init__(self):
         self._entries: dict = {}
         self.replays = 0
         self.nodes_replayed = 0
+        self.captures: list = []
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -140,7 +179,9 @@ class GraphFamily:
         of its outputs returned."""
         entry = self._entries.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             entry = self._entries[key] = self._capture(fn, inputs)
+            self.captures.append((key[0], time.perf_counter() - t0))
         dst, src = leaves(entry.inputs), leaves(inputs)
         if len(dst) != len(src):
             raise ValueError(f"graph {key[0]!r}: {len(src)} input tensors, "
@@ -169,7 +210,8 @@ class GraphFamily:
         before = dict(build.LAUNCHES)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with torch.cuda.graph(graph):
+            with collection_paused(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         finally:
             captured = {k: n - before[k] for k, n in build.LAUNCHES.items()}

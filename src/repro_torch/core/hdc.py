@@ -16,7 +16,8 @@ import torch
 
 __all__ = [
     "random_hv", "bind", "bundle", "permute", "sign_project",
-    "pack_bits", "unpack_bits", "popcount32", "hamming_packed", "dot_packed",
+    "pack_bits", "unpack_bits", "popcount32", "dot_bipolar", "cosine_bipolar",
+    "hamming_packed", "dot_packed", "cosine_packed",
 ]
 
 _M1 = 0x55555555
@@ -103,6 +104,16 @@ def unpack_bits(packed: torch.Tensor, D: int) -> torch.Tensor:
     return torch.where(bits == 1, 1, -1).to(torch.int8)
 
 
+def dot_bipolar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer dot product of bipolar vectors."""
+    return torch.sum(a.to(torch.int32) * b.to(torch.int32), dim=-1,
+                     dtype=torch.int32)
+
+
+def cosine_bipolar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return dot_bipolar(a, b).to(torch.float32) / a.shape[-1]
+
+
 def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Number of differing dimensions, from packed words (XOR + popcount)."""
     return torch.sum(popcount32(a ^ b), dim=-1, dtype=torch.int32)
@@ -113,3 +124,11 @@ def dot_packed(a: torch.Tensor, b: torch.Tensor, d_eff=None) -> torch.Tensor:
     if d_eff is None:
         d_eff = a.shape[-1] * 32
     return d_eff - 2 * hamming_packed(a, b)
+
+
+def cosine_packed(a: torch.Tensor, b: torch.Tensor, d_eff=None) -> torch.Tensor:
+    """cos(a, b) over the first d_eff dims, from packed words."""
+    if d_eff is None:
+        d_eff = a.shape[-1] * 32
+    d = torch.as_tensor(d_eff, dtype=torch.float32, device=a.device)
+    return dot_packed(a, b, d_eff).to(torch.float32) / d

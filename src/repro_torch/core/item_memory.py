@@ -121,6 +121,26 @@ def build_item_memory(bipolar: torch.Tensor, plane_total: int = 4) -> ItemMemory
     )
 
 
+def item_memory_from_prototypes(feats: torch.Tensor, R: torch.Tensor,
+                                tie: torch.Tensor | None = None,
+                                plane_total: int = 4) -> ItemMemory:
+    """Class prototypes: bundle sign-projected examples per class.
+
+    ``feats`` is [M, n_examples, d]; ``R`` the [D, d] projection. This is how
+    the item memory is *trained* from encoder features so that the
+    associative aligner realizes the CLIP-transferred semantics. ``tie``
+    (bipolar [M, D], or None) breaks each class's zero-sum dimensions; it
+    stands for ``repro``'s keyed bundle, whose bits come from
+    ``jax.random`` and so are drawn outside the port. Without it a zero sum
+    bundles to +1, as ``repro`` does with ``key=None``."""
+    hv = hdc.sign_project(feats, R)                        # [M, n, D]
+    s = torch.sum(hv.to(torch.int32), dim=1, dtype=torch.int32)
+    if tie is not None:
+        s = torch.where(s == 0, tie.to(torch.int32), s)
+    bundled = torch.where(s >= 0, 1, -1).to(torch.int8)
+    return build_item_memory(bundled, plane_total=plane_total)
+
+
 def _index(banks, device):
     """(banks as an int64 tensor, its device)."""
     if isinstance(banks, torch.Tensor):

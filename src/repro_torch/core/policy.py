@@ -129,3 +129,13 @@ def select_banks(n_objects: torch.Tensor, queue_depth: torch.Tensor,
     fits = worst.to(torch.float32) <= budget[..., None]
     best = torch.amax(torch.where(fits, candidates, 1), dim=-1)
     return best.to(torch.int32)
+
+
+def decide(rho: torch.Tensor, delta_count: torch.Tensor,
+           acc_tag_ok: torch.Tensor, n_objects: torch.Tensor,
+           queue_depth: torch.Tensor, cfg: TorrConfig):
+    """(action, banks) per Alg. 1 line 9's combined return."""
+    high = high_load(n_objects, queue_depth, cfg)
+    banks = select_banks(n_objects, queue_depth, cfg)
+    action = select_path(rho, delta_count, acc_tag_ok, high, cfg)
+    return action, banks

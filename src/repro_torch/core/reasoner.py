@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from . import hdc
+from . import aligner, hdc
 from .item_memory import ItemMemory, dim_mask
 from .types import TorrConfig
 
@@ -53,6 +53,26 @@ def task_weights(g_P: torch.Tensor, im: ItemMemory, cfg: TorrConfig,
     dots = im.bipolar.to(torch.float32) @ g
     d_eff = torch.sum(dmask, dtype=torch.int32).to(torch.float32)
     return dots / d_eff
+
+
+def precompute_weights(graph: TaskGraph, im: ItemMemory, cfg: TorrConfig,
+                       task_paths) -> torch.Tensor:
+    """Offline weights for fixed tasks: [n_tasks, M] at full D.
+
+    ``task_paths`` is int32 [n_tasks, max_hops] with -1 padding."""
+    return torch.stack([
+        task_weights(compose_path(graph, tid, task_paths[tid]), im, cfg,
+                     cfg.B)
+        for tid in range(graph.text_hv.shape[0])])
+
+
+def online_weights(graph: TaskGraph, im: ItemMemory, cfg: TorrConfig,
+                   task_id: int, path_ids, banks) -> torch.Tensor:
+    """Online prompt change (paper Sec. 4.5): recompute w_j at run time by
+    treating g_P as a query through the same similarity kernel the aligner
+    uses (XNOR-popcount over the packed item memory)."""
+    gp = hdc.pack_bits(compose_path(graph, task_id, path_ids))
+    return aligner.full_scores(gp, im, cfg, banks)[1]
 
 
 def topk_key_margin(scores: torch.Tensor, cfg: TorrConfig):

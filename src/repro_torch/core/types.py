@@ -138,6 +138,10 @@ class StreamBatch:
     boxes: torch.Tensor        # f32   [S, N_max, 4]
     queue_depth: torch.Tensor  # int32 [S] per-stream backlog
 
+    @property
+    def n_streams(self) -> int:
+        return self.q_packed.shape[0]
+
 
 @dataclasses.dataclass
 class WindowTelemetry:

@@ -24,10 +24,9 @@ through ``perf.cycle_model.latency_summary`` — the same key vocabulary the
 cycle-accurate model reports, so measured and simulated RT envelopes diff
 directly.
 
-``metrics=`` and ``slo=`` are duck-typed: a registry with ``counter`` and
-``histogram`` (as ``repro.obs.metrics.MetricsRegistry``) and a monitor with
-``observe(missed)`` (as ``repro.obs.slo.SLOMonitor``); the port has no
-observability package of its own yet.
+``metrics=`` takes a :class:`~repro_torch.obs.metrics.MetricsRegistry` and
+``slo=`` a :class:`~repro_torch.obs.slo.SLOMonitor` (any object with
+``observe(missed)``).
 """
 from __future__ import annotations
 
@@ -38,15 +37,8 @@ import time
 import numpy as np
 
 from ..configs.torr_edge import rt_budget_s
+from ..obs.metrics import LATENCY_BUCKETS_S
 from ..perf.cycle_model import latency_summary
-
-# Window-latency histogram buckets in seconds: 100 us (a bypass-heavy
-# window) to 10 s (a stalled engine), the same edges as
-# ``repro.obs.metrics.LATENCY_BUCKETS_S``
-LATENCY_BUCKETS_S = (
-    1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
-    1e-1, 2.5e-1, 5e-1, 1.0, 2.5, 5.0, 10.0,
-)
 
 
 class Decision(enum.IntEnum):

@@ -430,6 +430,42 @@ def test_engine_jit_on_the_cpu_is_the_eager_step(kw):
     assert_dataclass_same(res[True][1], res[False][1], "state")
 
 
+def test_collection_is_paused_through_nested_and_concurrent_captures():
+    """The cyclic collector stays off until the last capture ends, also
+    across threads, and comes back only if it was on."""
+    import gc
+    import threading
+
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        inside, release = threading.Event(), threading.Event()
+
+        def other():
+            with capture.collection_paused():
+                inside.set()
+                release.wait(timeout=30)
+
+        t = threading.Thread(target=other)
+        with capture.collection_paused():
+            assert not gc.isenabled()
+            t.start()
+            assert inside.wait(timeout=30)
+            with capture.collection_paused():
+                assert not gc.isenabled()
+            assert not gc.isenabled()
+        assert not gc.isenabled()      # the other thread still captures
+        release.set()
+        t.join(timeout=30)
+        assert gc.isenabled()
+        gc.disable()
+        with capture.collection_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 # --- on the card -------------------------------------------------------
 
 @pytest.fixture
@@ -480,3 +516,34 @@ def test_a_capture_error_raises_on_the_card(card):
     assert len(fam) == 0
     assert fam.run(("ok",), lambda x: x + 1,
                    (torch.ones(4, device=card),)).tolist() == [2.0] * 4
+
+
+@pytest.mark.cuda
+def test_a_collection_cannot_free_a_dead_family_during_a_capture(card):
+    """A family that only a reference cycle holds once a capture has begun,
+    and a collection wherever the collector may run: capturing another
+    family's graph must not collect the dead one's graphs on the capturing
+    thread (destroying a graph there invalidates the capture)."""
+    import gc
+
+    dead = capture.GraphFamily()
+    for k in range(4):
+        dead.run((f"k{k}",), lambda x: x * 2, (torch.ones(8, device=card),))
+    cycle = [dead]
+    cycle.append(cycle)
+    holder = [cycle]
+    del dead, cycle
+
+    def collects(x):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()      # the dead family is now garbage
+            if gc.isenabled():  # an automatic collection could run here
+                gc.collect()
+        return x + 1000
+
+    try:
+        out = capture.GraphFamily().run(("live",), collects,
+                                        (torch.ones(4, device=card),))
+    finally:
+        gc.collect()
+    assert out.tolist() == [1001.0] * 4
