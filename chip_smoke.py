@@ -114,14 +114,50 @@ bit:
  11. the device-idle share of every level and lowering of phase 8 on the
      served traffic (its second window again, under ``torch.profiler``),
      last, because a profiled step slows the steps after it.
+ 12. supervised recovery (run after 9b, before 10) over the reuse
+     windows of phase 4 on the card's packed words, every engine warmed
+     up by its factory and the launches counted from 0 after each
+     warm-up (a ``bank_prefix_hamming``, and on compact two
+     ``packed_hamming_batched``, every served step of the last engine):
+     (a) a fault-free ``ServeSupervisor`` over ``AsyncStreamEngine(
+     fused="compact")`` with an ``InMemoryStateStore`` at
+     ``snapshot_every=1``, bit-equal to the captured sync compact run
+     (which phase 9a's async run equals), its ms/step beside phase 9a's;
+     (b) the same with a ``FaultPlan`` on the dispatcher at step 3 and on
+     the collector at step 5: one restart, windows replayed, bit-equal;
+     (c) a ``JsonlStateStore`` at ``snapshot_every=4`` with a collector
+     fault at step 6 (windows 4 and 5 re-run silently), bit-equal; (d)
+     the sync prefix ``StreamEngine`` under the supervisor with a
+     dispatcher fault, bit-equal to phase 4's prefix run; (e) a crash
+     loop: three engines die at step 0, ``breaker_restarts=3`` latches
+     the degrade plan on the fourth, every window resolves once, and
+     ``memory_allocated`` / ``memory_reserved`` are printed before the
+     first engine, after each restart and after the run (the dead
+     engines' graph families must be freed); (f) the launcher as a
+     subprocess (``--supervise --state-store --outputs-jsonl``, 2
+     streams x 10 frames) SIGKILLed once its store holds a snapshot and
+     run again: the merged ledger equals a fault-free run's. Each
+     recovery prints the seconds from the death to the first window the
+     rebuilt engine resolved, its captures and the windows replayed and
+     re-run;
+ 13. the gateway (run after 12, before 10): an in-process ``Gateway``
+     on 127.0.0.1:0 over a supervised ``AsyncStreamEngine`` (prefix); a
+     client thread opens 16 sessions and posts the reuse windows one at
+     a time in seq order (uint32 words on the wire); every response's
+     ``best`` and ``scores_sha256`` equal a sync prefix engine's on the
+     card fed the same windows in that order; then with a dispatcher
+     fault at step 3 and the client retrying after each Retry-After, the
+     same responses; then ``drain()`` with a window held in flight:
+     ``/readyz`` 503 not ready and a new window 503 ``draining``; request
+     latency p50/p99 and the retries printed.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
 capture recorded (``GraphFamily``), so the counts keep their meaning.
 Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
 rows (captured and eager ms/step, windows/s, idle share), the async vs
-sync rows and the per-kernel report are printed as JSON before the last
-line, which is
+sync rows, the supervised and gateway rows and the per-kernel report are
+printed as JSON before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1988,6 +2024,673 @@ def phase_launcher():
         f"after the warm-up {launches}")
 
 
+# -- phases 12 and 13: supervised recovery and the gateway -------------------
+
+SUP_FAULTS = (("dispatcher", 3), ("collector", 5))
+# (c): a collector death at step 6 at cadence 4: steps 0-5 were delivered,
+# the store covers 0-3, so windows 4 and 5 re-run silently
+JSONL_FAULT_AT = 6
+CRASH_LOOP = 3              # (e): engines that die at step 0, and the
+#                             breaker's threshold
+LAUNCHER_RESUME = (2, 10)   # (f): streams, frames
+GATEWAY_TENANTS = 4         # phase 13: stream s belongs to tenant s mod 4
+
+
+def _session(s) -> str:
+    """Phase 13's session id of stream s: ``t<s mod tenants>/cam<s>``."""
+    return f"t{s % GATEWAY_TENANTS}/cam{s}"
+
+
+def _memory(dev):
+    """(allocated, reserved) bytes on the card (zeros on the CPU)."""
+    if torch.device(dev).type != "cuda":
+        return 0, 0
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+class _Factory:
+    """The supervised runs' engines. Each is warmed up (its current key
+    captured) before the supervisor admits into it, and the launch
+    counts are set to 0 after that warm-up, so the counts after a run are
+    those of the last engine's served steps. ``faults`` gives the n-th
+    engine built its FaultPlan (None after the tuple). Records the memory
+    before each build and each warm-up's seconds and captures; it keeps no
+    engine (a dead engine's graph family must be freed)."""
+
+    def __init__(self, cfg, sys_, S, store, cadence, faults=(), sync=False,
+                 dev="cuda", **kw):
+        self.cfg, self.sys_, self.S = cfg, sys_, S
+        self.store, self.cadence, self.faults = store, cadence, faults
+        self.sync, self.dev, self.kw = sync, dev, kw
+        self.built = 0
+        self.memory = []        # (allocated, reserved) before each build
+        self.warm = []          # (seconds, captures) of each warm-up
+        self.after_first = None  # memory after the first engine's warm-up
+
+    def __call__(self):
+        from repro_torch.kernels import build
+        from repro_torch.serving.async_engine import AsyncStreamEngine
+        from repro_torch.serving.stream_engine import StreamEngine
+
+        self.memory.append(_memory(self.dev))
+        fault = self.faults[self.built] if self.built < len(self.faults) \
+            else None
+        self.built += 1
+        kw = dict(self.kw, store=self.store, snapshot_every=self.cadence,
+                  fault_plan=fault, device=self.dev)
+        eng = (StreamEngine(self.cfg, self.sys_.im, n_slots=self.S, **kw)
+               if self.sync else
+               AsyncStreamEngine(self.cfg, self.sys_.im, n_slots=self.S,
+                                 paused=True, **kw))
+        t0 = time.perf_counter()
+        eng.warmup()
+        self.warm.append((round(time.perf_counter() - t0, 3),
+                          len(eng.graphs.captures) if eng.graphs else 0))
+        if self.after_first is None:
+            self.after_first = _memory(self.dev)
+        build.reset_launches()
+        return eng
+
+
+def _sup_submit(front, sys_, frames, words, T, n, admit=True):
+    """Admit stream ``cam<s>`` (task s mod tasks) and submit its windows
+    0..T-1 (N_max rows of step t's words each), in the order phase 4 queued
+    them; each stream's futures."""
+    S = len(frames)
+    if admit:
+        _admit_all(front, sys_, S)
+    futs = {f"cam{s}": [] for s in range(S)}
+    for t in range(T):
+        for s, fr in enumerate(frames):
+            futs[f"cam{s}"].append(front.submit(
+                f"cam{s}", words[t][s * n:(s + 1) * n], fr[t].valid,
+                fr[t].boxes))
+    return futs
+
+
+def _supervised(cfg, sys_, frames, words, factory, **sup_kw):
+    """One supervised run over every window: submitted through the
+    supervisor, the async engine started (its wall from there to the end
+    of ``flush``), every future's result. Returns (results, seconds,
+    supervisor, launches after the last engine's warm-up)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.supervisor import ServeSupervisor
+
+    T, n = len(frames[0]), cfg.N_max
+    sup = ServeSupervisor(factory, factory.store, **sup_kw)
+    try:
+        futs = _sup_submit(sup, sys_, frames, words, T, n)
+        t0 = time.perf_counter()
+        if not factory.sync:
+            sup.engine.start()
+        # every window resolved: its step's results are on the host (no
+        # device-wide sync, which an abandoned engine's capture forbids)
+        sup.flush(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        res = {sid: [f.result(timeout=60) for f in fs]
+               for sid, fs in futs.items()}
+    finally:
+        sup.close(drain=False)
+    if not sup.join_abandoned(timeout=60):
+        raise AssertionError("an abandoned engine's worker did not end")
+    return res, wall, sup, launches
+
+
+def _recoveries(sup) -> str:
+    return "; ".join(
+        f"recovery {i + 1}: {r.get('first_window_s', float('nan')):.3f} s "
+        f"to the first window the rebuilt engine resolved "
+        f"({r['rebuilt_s']:.3f} s to rebuilt, re-admitted and replay "
+        f"submitted), "
+        f"{len(r.get('captures', []))} captures "
+        f"({sum(sec for _n, sec in r.get('captures', [])):.3f} s: "
+        f"{[(n, round(sec, 3)) for n, sec in r.get('captures', [])]}), "
+        f"{r['replayed']} windows replayed, {r['rerun']} re-run"
+        for i, r in enumerate(sup.recoveries))
+
+
+def _require_per_step(label, launches, steps, names):
+    """At least one launch of each kernel a served step of the last
+    engine (counted from 0 after its warm-up)."""
+    for name in names:
+        if steps < 1 or launches[name] < steps:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches for {steps} served steps")
+
+
+def phase_supervised(cfg, sys_, frames, words, compact_ref, prefix_ref,
+                     async_ms, dev="cuda"):
+    """Supervised recovery (phase 12) over the reuse windows of phase 4
+    (16 streams, 10 windows, the card's packed words). ``compact_ref``
+    and ``prefix_ref`` are the captured sync compact run and phase 4's
+    prefix run (phase 9a's async compact run equals the first);
+    ``async_ms`` is phase 9a's async compact ms/step over the same windows
+    without a store. Every rebuilt engine is warmed up by its factory; the
+    launches after it must show a ``bank_prefix_hamming`` (and on compact
+    two ``packed_hamming_batched``) each served step."""
+    import gc
+    import tempfile
+
+    from repro_torch.control import build_ladder
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.serving.state_store import (InMemoryStateStore,
+                                                 JsonlStateStore)
+
+    S, T = len(frames), len(frames[0])
+    compact = ("packed_hamming_batched", "bank_prefix_hamming")
+    rows = []
+
+    def run(label, factory, ref, what, kernels, **sup_kw):
+        t_case = time.perf_counter()
+        res, wall, sup, launches = _supervised(cfg, sys_, frames, words,
+                                               factory, **sup_kw)
+        steps = sup.engine.stats.steps
+        _require_per_step(label, launches, steps, kernels)
+        if ref is not None:
+            _assert_results_equal(label, res, ref)
+        s = sup.summary()
+        row = dict(label=label, restarts=s["restarts"],
+                   replayed=s["windows_replayed"], rerun=s["windows_rerun"],
+                   ms_per_step=1e3 * wall / max(1, steps), wall_s=wall,
+                   recoveries=[{k: v for k, v in r.items() if k != "dead_at"}
+                               for r in sup.recoveries],
+                   warmups=factory.warm)
+        rows.append(row)
+        log(f"[supervised] {label}: {S} streams x {T} windows, "
+            f"{what}; "
+            f"restarts {s['restarts']}, windows replayed "
+            f"{s['windows_replayed']}, re-run {s['windows_rerun']}; wall "
+            f"{wall:.3f} s, any recovery included (the last engine "
+            f"{steps} steps, {row['ms_per_step']:.2f} ms/step); engines "
+            f"built "
+            f"{factory.built}, warm-ups (s, captures) {factory.warm}; "
+            f"{_recoveries(sup)}; launches after the last warm-up "
+            f"{launches}; {time.perf_counter() - t_case:.1f} s")
+        return res, sup, row
+
+    compact_eq = ("every window bit-equal to the captured sync compact run "
+                  "(== phase 9a's async compact run)")
+    # (a) fault-free, snapshots at every window
+    store = InMemoryStateStore()
+    _, _, row_a = run("(a) compact, no fault, InMemoryStateStore, "
+                      "snapshot_every=1",
+                      _Factory(cfg, sys_, S, store, 1, fused="compact",
+                               dev=dev), compact_ref, compact_eq, compact)
+    if row_a["restarts"] or len(store.keys()) != S or \
+            any(store.latest_seq(k) != T for k in store.keys()):
+        raise AssertionError("(a): a restart, or the store does not cover "
+                             "every window")
+    log(f"[supervised] (a) ms/step {row_a['ms_per_step']:.2f} with the "
+        f"store at every window against {async_ms:.2f} without one (phase "
+        f"9a, the same windows)")
+    # (b) one fault on either worker
+    for kind, at in SUP_FAULTS:
+        _, _, row = run(f"(b) compact, {kind} fault at step {at}",
+                        _Factory(cfg, sys_, S, InMemoryStateStore(), 1,
+                                 faults=(FaultPlan(at_step=at, thread=kind),),
+                                 fused="compact", dev=dev),
+                        compact_ref, compact_eq, compact, backoff_s=0.001)
+        if row["restarts"] != 1 or row["replayed"] <= 0:
+            raise AssertionError(f"(b) {kind}: {row['restarts']} restarts, "
+                                 f"{row['replayed']} windows replayed")
+    # (c) a JSONL store at cadence 4: the windows after its snapshot re-run
+    with tempfile.TemporaryDirectory() as tmp:
+        store = JsonlStateStore(Path(tmp) / "state.jsonl")
+        try:
+            _, _, row = run(
+                f"(c) compact, JsonlStateStore, snapshot_every=4, tracker "
+                f"off, collector fault at step {JSONL_FAULT_AT}",
+                _Factory(cfg, sys_, S, store, 4,
+                         faults=(FaultPlan(at_step=JSONL_FAULT_AT,
+                                           thread="collector"),),
+                         fused="compact", dev=dev),
+                compact_ref, compact_eq, compact, backoff_s=0.001)
+        finally:
+            store.close()
+        if row["restarts"] != 1 or row["rerun"] <= 0:
+            raise AssertionError(f"(c): {row['restarts']} restarts, "
+                                 f"{row['rerun']} windows re-run")
+    # (d) the sync prefix engine under the supervisor
+    _, _, row = run("(d) sync prefix, dispatcher fault at step 3",
+                    _Factory(cfg, sys_, S, InMemoryStateStore(), 1,
+                             faults=(FaultPlan(at_step=3),), sync=True,
+                             dev=dev),
+                    prefix_ref, "every window bit-equal to phase 4's prefix "
+                    "run", ("bank_prefix_hamming",), backoff_s=0.001)
+    if row["restarts"] != 1:
+        raise AssertionError(f"(d): {row['restarts']} restarts")
+    # (e) a crash loop until the breaker trips
+    gc.collect()
+    factory = _Factory(cfg, sys_, S, InMemoryStateStore(), 1,
+                       faults=tuple(FaultPlan(at_step=0)
+                                    for _ in range(CRASH_LOOP)),
+                       fused="compact", dev=dev)
+    res, sup, row = run(f"(e) compact, crash loop: engines 1-{CRASH_LOOP} "
+                        f"die at step 0, breaker_restarts={CRASH_LOOP}",
+                        factory, None, "every window resolved once (below)",
+                        compact, breaker_restarts=CRASH_LOOP,
+                        backoff_s=0.001)
+    cheap = build_ladder(cfg)[-1]
+    if row["restarts"] != CRASH_LOOP or not sup.degraded or \
+            sup.engine.plan != cheap:
+        raise AssertionError(f"(e): {row['restarts']} restarts, degraded "
+                             f"{sup.degraded}, plan {sup.engine.plan}")
+    n_res = sum(len(w) for w in res.values())
+    if n_res != S * T or not all(
+            np.isfinite(np.asarray(o.scores)).all()
+            for w in res.values() for o, _ in w):
+        raise AssertionError(f"(e): {n_res} windows resolved")
+    del res, sup
+    gc.collect()
+    end = _memory(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    emptied = _memory(dev)
+    base, first = factory.memory[0], factory.after_first
+    mib = lambda b: round(b / 2**20, 1)  # noqa: E731
+    log(f"[supervised] (e) memory (allocated, reserved) MiB: before the "
+        f"first engine {tuple(map(mib, base))}, after its warm-up "
+        f"{tuple(map(mib, first))}; after restart k (before engine k+1): "
+        f"{[tuple(map(mib, m)) for m in factory.memory[1:]]}; after the "
+        f"run, the engines dropped and the workers joined "
+        f"{tuple(map(mib, end))}; after empty_cache "
+        f"{tuple(map(mib, emptied))}; degrade plan {cheap} latched on the "
+        f"surviving engine")
+    # the dead engines' families freed: what stays allocated is below
+    # three families' worth (four engines each captured its warm-up key)
+    one = first[0] - base[0]
+    if torch.device(dev).type == "cuda" and end[0] - base[0] > 3 * one:
+        raise AssertionError(f"(e): {mib(end[0] - base[0])} MiB still "
+                             f"allocated after the loop, one engine "
+                             f"{mib(one)} MiB: dead families leaked")
+    row["memory_mib"] = dict(
+        before=tuple(map(mib, base)),
+        after_first_warmup=tuple(map(mib, first)),
+        after_restarts=[tuple(map(mib, m)) for m in factory.memory[1:]],
+        after_run=tuple(map(mib, end)),
+        after_empty_cache=tuple(map(mib, emptied)))
+    rows.append(dict(label="(f) launcher", **_launcher_resume(dev)))
+    return rows
+
+
+def _read_ledger(path):
+    recs = {}
+    if not Path(path).exists():
+        return recs
+    for line in Path(path).read_text().splitlines():
+        try:
+            r = json.loads(line)
+        except json.JSONDecodeError:
+            continue            # a torn trailing record of a killed run
+        recs[(r["stream"], r["seq"])] = r
+    return recs
+
+
+def _launcher_resume(dev="cuda", attempts=2) -> dict:
+    """(f): ``python -m repro_torch.launch.serve --torr-streams 2
+    --torr-frames 10 --async --supervise --state-store ... --outputs-jsonl
+    ...`` at the launcher's own config, SIGKILLed once its store holds a
+    snapshot, then run again (it must skip the windows the store covers):
+    the merged ledger must equal a fault-free run's, record for record. A
+    kill that lands after the run ended is tried again once; every
+    process is waited for."""
+    import os
+    import subprocess
+    import tempfile
+
+    S, T = LAUNCHER_RESUME
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve",
+            "--torr-streams", str(S), "--torr-frames", str(T), "--async",
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = Path(tmp) / "ref.jsonl"
+        r = subprocess.run(base + ["--outputs-jsonl", str(ref)], env=env,
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"(f) fault-free launcher: "
+                                 f"{r.stderr[-2000:]}")
+        want = _read_ledger(ref)
+        if len(want) != S * T:
+            raise AssertionError(f"(f): {len(want)} fault-free records")
+        for attempt in range(attempts):
+            out = Path(tmp) / f"out{attempt}.jsonl"
+            store = Path(tmp) / f"state{attempt}.jsonl"
+            cmd = base + ["--supervise", "--state-store", str(store),
+                          "--outputs-jsonl", str(out)]
+            p = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.DEVNULL)
+            try:
+                deadline = time.monotonic() + 300
+                while p.poll() is None and time.monotonic() < deadline:
+                    # a snapshot on disk: the run again has windows to skip
+                    if store.exists() and b"\n" in store.read_bytes():
+                        p.kill()
+                        break
+                    time.sleep(0.001)
+                p.wait(timeout=60)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+            covered = _read_ledger(out)
+            if p.returncode == 0:
+                continue        # the run ended before the kill landed
+            r2 = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                                timeout=300)
+            if r2.returncode != 0 or "resumed" not in r2.stdout:
+                raise AssertionError(f"(f) resumed launcher: rc "
+                                     f"{r2.returncode} {r2.stdout[-2000:]} "
+                                     f"{r2.stderr[-2000:]}")
+            merged = _read_ledger(out)
+            if merged != want or not set(covered) <= set(merged):
+                raise AssertionError("(f): the merged ledger differs from "
+                                     "the fault-free run's")
+            skipped = [ln for ln in r2.stdout.splitlines() if "resumed" in ln]
+            log(f"[supervised] (f) launcher {S} streams x {T} frames, "
+                f"SIGKILLed with {len(covered)} of {S * T} records written "
+                f"(attempt {attempt + 1}), run again ({skipped[0].strip()}): "
+                f"merged ledger == the fault-free run's, record for record; "
+                f"{time.perf_counter() - t0:.1f} s for the three runs")
+            return dict(killed_at_records=len(covered), attempt=attempt + 1,
+                        seconds=time.perf_counter() - t0)
+    raise AssertionError(f"(f): the run ended before the kill in "
+                         f"{attempts} attempts")
+
+
+class _HeldFront:
+    """The gateway's front with one submission held until released: it
+    keeps a request in flight, so ``drain()`` waits for it and the
+    requests made meanwhile can be observed. Everything else is the
+    wrapped front's."""
+
+    def __init__(self, front):
+        self._front = front
+        self.gate = False
+        self.held = threading.Event()
+        self.release = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self._front, name)
+
+    def submit(self, *args):
+        if self.gate:
+            self.gate = False
+            self.held.set()
+            self.release.wait(60)
+        return self._front.submit(*args)
+
+
+def _http(port, method, path, body=None, conn=None, timeout=120.0):
+    """One request (on ``conn`` when given); (status, headers, body)."""
+    import http.client
+
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"}
+                     if data else {})
+        r = conn.getresponse()
+        raw = r.read()
+        hdr = {k.lower(): v for k, v in r.getheaders()}
+        try:
+            return r.status, hdr, json.loads(raw)
+        except ValueError:
+            return r.status, hdr, raw
+    finally:
+        if own:
+            conn.close()
+
+
+def _gateway_client(port, frames, words, n, n_tasks, log_req):
+    """The client: 16 sessions ``t<s mod 4>/cam<s>`` (4 tenants of 4
+    streams, within the default quota of 8 sessions a tenant; task s mod
+    tasks), then window t of every stream, t = 0..T-1, posted one at a
+    time in seq order with the packed words as uint32, each retried after
+    its Retry-After on 429 and 503. Returns each window's response body
+    and its seconds from the first attempt to the response served."""
+    from repro_torch.serving import protocol
+
+    S, T = len(frames), len(frames[0])
+    for s in range(S):
+        st, _, b = _http(port, "POST", "/v1/session",
+                         {"tenant": _session(s).split("/")[0],
+                          "stream": f"cam{s}",
+                          "task": s % n_tasks})
+        if st != 200:
+            raise AssertionError(f"gateway: session cam{s}: {st} {b}")
+    bodies, window_s = {}, {}
+    for t in range(T):
+        for s, fr in enumerate(frames):
+            q = words[t][s * n:(s + 1) * n].cpu().numpy().view(np.uint32)
+            frame = {"session": _session(s), "seq": t,
+                     "q": protocol.encode_array(q),
+                     "valid": protocol.encode_array(
+                         np.asarray(fr[t].valid, bool)),
+                     "boxes": protocol.encode_array(
+                         np.asarray(fr[t].boxes, np.float32))}
+            t_first = time.perf_counter()
+            for _ in range(400):
+                t0 = time.perf_counter()
+                st, hdr, b = _http(port, "POST", "/v1/window", frame)
+                log_req(st, time.perf_counter() - t0,
+                        b.get("error") if isinstance(b, dict) else None)
+                if st == 200:
+                    bodies[(s, t)] = b
+                    window_s[(s, t)] = time.perf_counter() - t_first
+                    break
+                if st not in (429, 503):
+                    raise AssertionError(f"gateway: cam{s} window {t}: "
+                                         f"{st} {b}")
+                time.sleep(min(float(hdr.get("x-retry-after-s", 0.05)), 0.5))
+            else:
+                raise AssertionError(f"gateway: cam{s} window {t} never "
+                                     "served")
+    return bodies, window_s
+
+
+def phase_gateway(cfg, sys_, frames, words, dev="cuda"):
+    """The gateway (phase 13): an in-process ``Gateway`` on 127.0.0.1:0
+    over a supervised ``AsyncStreamEngine`` (prefix) at the edge config; a
+    client thread opens 16 sessions and posts the reuse windows in seq
+    order, one request at a time. Every response's ``best`` and
+    ``scores_sha256`` must equal a fresh sync prefix engine's on the card
+    fed the same windows in the same order (one a step, as the gateway's
+    engine serves them); then the same with a dispatcher fault at step 3,
+    the client retrying after each 503's Retry-After; then ``drain()``
+    with a request held in flight: ``/readyz`` not ready, a new window 503
+    ``draining``."""
+    from repro_torch.kernels import build
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.serving.gateway import Gateway
+    from repro_torch.serving.protocol import window_result_body
+    from repro_torch.serving.state_store import InMemoryStateStore
+    from repro_torch.serving.stream_engine import StreamEngine
+    from repro_torch.serving.supervisor import ServeSupervisor
+
+    S, T, n = len(frames), len(frames[0]), cfg.N_max
+    n_tasks = sys_.task_w.shape[0]
+    t_ref = time.perf_counter()
+    ref = StreamEngine(cfg, sys_.im, n_slots=S, device=dev)
+    ref.warmup()
+    for s in range(S):
+        ref.admit(_session(s), sys_.task_w[s % n_tasks])
+    want = {}
+    for t in range(T):
+        for s, fr in enumerate(frames):
+            ref.submit(_session(s), words[t][s * n:(s + 1) * n],
+                       fr[t].valid, fr[t].boxes)
+            out = ref.step()[_session(s)][0]
+            want[(s, t)] = window_result_body(t, out)
+    ref_s = time.perf_counter() - t_ref
+    del ref
+    log(f"[gateway] reference: a sync prefix engine on the card fed the "
+        f"{S * T} windows one a step in the client's order: {ref_s:.1f} s")
+    rows = []
+    for label, fault in (("no fault", None),
+                         ("dispatcher fault at step 3",
+                          FaultPlan(at_step=3, thread="dispatcher"))):
+        t_case = time.perf_counter()
+        store = InMemoryStateStore()
+        factory = _Factory(cfg, sys_, S, store, 1,
+                           faults=(fault,) if fault else (), dev=dev)
+        sup = ServeSupervisor(factory, store)
+        front = _HeldFront(sup)
+        gw = Gateway(front, cfg, sys_.task_w, port=0)
+        reqs = []
+        lock = threading.Lock()
+
+        def log_req(st, sec, reason):
+            with lock:
+                reqs.append((st, sec, reason))
+
+        result = {}
+
+        def client():
+            try:
+                result["bodies"], result["window_s"] = _gateway_client(
+                    gw.port, frames, words, n, n_tasks, log_req)
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                result["error"] = e
+
+        drain_seen = None
+        try:
+            sup.engine.start()
+            gw.start()
+            th = threading.Thread(target=client, name="gateway-client")
+            th.start()
+            th.join(timeout=600)
+            if th.is_alive():
+                raise AssertionError("gateway: the client did not finish")
+            if "error" in result:
+                raise result["error"]
+            bodies = result["bodies"]
+            launches = dict(build.LAUNCHES)
+            steps = sup.engine.stats.steps
+            if fault is not None:
+                drain_seen = _drain_check(gw, front, frames, words, n, T)
+        finally:
+            gw.close()
+            sup.close(drain=False)
+        if not sup.join_abandoned(timeout=60):
+            raise AssertionError("gateway: an abandoned engine's worker "
+                                 "did not end")
+        if set(bodies) != set(want):
+            raise AssertionError("gateway: windows missing")
+        for k, b in want.items():
+            if bodies[k] != b:
+                raise AssertionError(f"gateway {label}: cam{k[0]} window "
+                                     f"{k[1]}: {bodies[k]} != {b}")
+        _require_per_step(f"gateway {label}", launches, steps,
+                          ("bank_prefix_hamming",))
+        ok = sorted(sec for st, sec, _r in reqs if st == 200)
+        win = sorted(result["window_s"].values())
+        retries = {}
+        for st, _sec, reason in reqs:
+            if st != 200:
+                retries[f"{st} {reason}"] = retries.get(f"{st} {reason}",
+                                                        0) + 1
+        s = sup.summary()
+        row = dict(label=label, requests=len(reqs),
+                   p50_ms=1e3 * ok[len(ok) // 2],
+                   p99_ms=1e3 * ok[min(len(ok) - 1, int(0.99 * len(ok)))],
+                   window_p50_ms=1e3 * win[len(win) // 2],
+                   window_p99_ms=1e3 * win[min(len(win) - 1,
+                                               int(0.99 * len(win)))],
+                   window_max_ms=1e3 * win[-1], launches=launches,
+                   retries=retries, restarts=s["restarts"],
+                   replayed=s["windows_replayed"],
+                   recoveries=[{k: v for k, v in r.items() if k != "dead_at"}
+                               for r in sup.recoveries],
+                   seconds=time.perf_counter() - t_case)
+        rows.append(row)
+        if s["restarts"] != (fault is not None):
+            raise AssertionError(f"gateway {label}: {s['restarts']} "
+                                 f"restarts")
+        log(f"[gateway] {label}: {S} sessions x {T} windows over HTTP, "
+            f"every response's best and scores_sha256 == the sync prefix "
+            f"engine's; {len(reqs)} requests, latency of the served ones "
+            f"p50 {row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; a "
+            f"window's, retries included, p50 {row['window_p50_ms']:.2f} "
+            f"ms, p99 {row['window_p99_ms']:.2f} ms, max "
+            f"{row['window_max_ms']:.2f} ms; retries {retries}; the last "
+            f"engine's {steps} steps launched {launches} after its "
+            f"warm-up; restarts {s['restarts']}, replayed "
+            f"{s['windows_replayed']}; {_recoveries(sup)}; warm-ups (s, "
+            f"captures) {factory.warm}; {row['seconds']:.1f} s")
+        if drain_seen is not None:
+            row["drain"] = drain_seen
+            log(f"[gateway] drain with a window in flight: {drain_seen}")
+    return rows
+
+
+def _drain_check(gw, front, frames, words, n, T):
+    """``drain()`` while a request is held in flight: on connections
+    opened before it, ``/readyz`` must answer 503 not ready and a new
+    window 503 ``draining``; the held window then resolves (200) and the
+    drain reports True."""
+    import http.client
+
+    from repro_torch.serving import protocol
+
+    conns = [http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+             for _ in range(2)]
+    for c in conns:        # accepted before the listener closes
+        if _http(gw.port, "GET", "/healthz", conn=c)[0] != 200:
+            raise AssertionError("drain: /healthz before the drain")
+
+    def frame(s):
+        q = words[T - 1][s * n:(s + 1) * n].cpu().numpy().view(np.uint32)
+        fr = frames[s][T - 1]
+        return {"session": _session(s), "seq": T,
+                "q": protocol.encode_array(q),
+                "valid": protocol.encode_array(np.asarray(fr.valid, bool)),
+                "boxes": protocol.encode_array(
+                    np.asarray(fr.boxes, np.float32))}
+
+    held, drained = {}, {}
+    front.gate = True
+    th = threading.Thread(target=lambda: held.update(
+        zip(("status", "headers", "body"),
+            _http(gw.port, "POST", "/v1/window", frame(0)))))
+    th.start()
+    if not front.held.wait(60):
+        raise AssertionError("drain: the held window never arrived")
+    dr = threading.Thread(target=lambda: drained.update(
+        ok=gw.drain(timeout=60)))
+    dr.start()
+    deadline = time.monotonic() + 30
+    while not gw.summary()["draining"]:
+        if time.monotonic() > deadline:
+            raise AssertionError("drain: never began")
+        time.sleep(0.001)
+    try:
+        st_r, _, b_r = _http(gw.port, "GET", "/readyz", conn=conns[0])
+        st_w, _, b_w = _http(gw.port, "POST", "/v1/window", frame(1),
+                             conn=conns[1])
+    finally:
+        front.release.set()
+        th.join(timeout=120)
+        dr.join(timeout=120)
+        for c in conns:
+            c.close()
+    if st_r != 503 or b_r.get("ready") is not False or \
+            b_r.get("draining") is not True:
+        raise AssertionError(f"drain: /readyz {st_r} {b_r}")
+    if st_w != 503 or b_w.get("error") != "draining":
+        raise AssertionError(f"drain: new window {st_w} {b_w}")
+    if held.get("status") != 200 or drained.get("ok") is not True:
+        raise AssertionError(f"drain: held window {held.get('status')}, "
+                             f"drained {drained.get('ok')}")
+    return dict(readyz=[st_r, b_r], new_window=[st_w, b_w["error"]],
+                held_window=held["status"], drained=drained["ok"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -2091,6 +2794,14 @@ def main() -> int:
     done("async == sync")
     phase_launcher()
     done("launcher")
+    by_label = {r["label"]: r for r in runs}
+    sup_rows = phase_supervised(
+        cfg, sys_, reuse, base_reuse[2], by_label["compact, reuse"]["res"],
+        base_reuse[0], next(r["async_ms_per_step"] for r in async_rows
+                            if r["label"] == "compact, reuse"))
+    done("supervised recovery")
+    gw_rows = phase_gateway(cfg, sys_, reuse, base_reuse[2])
+    done("gateway")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -2101,6 +2812,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"plan_ladder": rows}))
     print(json.dumps({"async_vs_sync": async_rows}))
+    print(json.dumps({"supervised": sup_rows}))
+    print(json.dumps({"gateway": gw_rows}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

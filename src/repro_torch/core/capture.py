@@ -36,7 +36,12 @@ calls are held to the rules of a capture. The cyclic garbage collector
 is held off while a graph is captured (:func:`collection_paused`): a
 collection on the capturing thread can free the graphs of an engine that
 is no longer referenced, and destroying a graph there invalidates the
-capture. ``captures`` records each capture's segment name and seconds.
+capture. Captures on different threads take turns (a process-wide
+lock): entering a capture syncs the card and empties the caching
+allocator, which must not happen while another thread captures, as it
+can when a supervisor's rebuilt engine captures beside an abandoned
+engine's dispatcher. ``captures`` records each capture's segment name and
+seconds.
 
 No fallback: a capture or replay error raises; nothing reruns the step
 eagerly. On the CPU there is no graph: :data:`EAGER` runs each segment as
@@ -62,6 +67,11 @@ CU_GRAPH_NODE_TYPE_KERNEL = 0
 # the first of them
 _gc_lock = threading.Lock()
 _gc_hold = {"captures": 0, "was_enabled": False}
+# one capture at a time in the process: entering torch.cuda.graph syncs the
+# card and empties the caching allocator, which must not run while another
+# thread captures (a supervisor's rebuilt engine may capture while the
+# abandoned engine's dispatcher still does)
+_capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -210,7 +220,7 @@ class GraphFamily:
         before = dict(build.LAUNCHES)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with collection_paused(), torch.cuda.graph(
+            with _capture_lock, collection_paused(), torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         finally:

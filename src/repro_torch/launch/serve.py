@@ -12,6 +12,15 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --torr-streams 4 --torr-frames 3 --async --rt RT-60 --governor \\
         --metrics-json m.json --flight-jsonl f.jsonl --trace-json t.json
+    # supervised, with one injected dispatcher death, a JSONL session
+    # store and the per-window output ledger (a SIGKILLed run resumes):
+    PYTHONPATH=src python -m repro_torch.launch.serve --torr-streams 4 \\
+        --torr-frames 10 --async --supervise --fault-at 5 \\
+        --fault-kind dispatcher --state-store st.jsonl \\
+        --outputs-jsonl out.jsonl
+    # the network gateway on an ephemeral port, until SIGTERM:
+    PYTHONPATH=src python -m repro_torch.launch.serve --gateway-port 0 \\
+        --supervise
 
 It serves S synthetic TOOD streams (``data.tood_synth``) at ``repro``'s
 launcher config (D=2048, B=8, M=64, K=16, N_max=16, delta_budget=256): each
@@ -52,12 +61,37 @@ Shutdown: SIGINT/SIGTERM unwind the serving loop; in-flight windows are
 cancelled and every armed artifact is still written before the process
 exits.
 
+Fault tolerance (``--supervise`` / ``--state-store`` / ``--fault-at``)
+=====================================================================
+
+``--supervise`` (implied by ``--fault-at``, and implying ``--async``)
+wraps the engine in a ``serving.supervisor.ServeSupervisor``: a worker
+death rebuilds the engine (its graphs captured anew), re-admits every
+stream warm from the session store and replays the windows no snapshot
+covers. ``--state-store PATH`` makes that store a fsync'd JSONL file
+(in memory otherwise), written every ``--snapshot-every`` served windows.
+``--fault-at STEP --fault-kind dispatcher|collector`` injects one worker
+death. ``--outputs-jsonl PATH`` appends one fsync'd record per resolved
+window (stream, seq, best classes, scores digest); a supervised run that
+was SIGKILLed and is run again with the same store skips each stream's
+windows the store already covers (``resumed: skipped N windows``), so the
+merged ledger equals a fault-free run's. A lost window exits 3.
+
+Network gateway (``--gateway-port``)
+====================================
+
+``--gateway-port PORT`` (0 = ephemeral, printed in the ``listening``
+line) serves ``serving.gateway.Gateway`` over the same engine stack
+instead of synthetic streams: clients open ``tenant/stream`` sessions and
+post packed windows over HTTP/1.1. ``--gateway-host/-rate/-burst/
+-deadline-ms/-max-conns/-tenant-sessions`` set its limits,
+``--gateway-seconds`` bounds the run, ``--gateway-sync`` drives the sync
+engine through ``SyncDriver``. SIGINT/SIGTERM drains: stop accepting,
+finish in-flight requests, write the artifacts, exit 0.
+
 One card: ``--mesh`` takes 0 or 1 (``repro`` shards the stream slots over
-more devices; the port serves one). Not offered yet, and brought by a
-later slice of the port: the fault-tolerance flags (``--supervise``,
-``--state-store``, ``--snapshot-every``, ``--fault-at``, ``--fault-kind``,
-``--outputs-jsonl``), the network gateway (``--gateway-*``) and the LM
-serving path (``--arch`` and its options).
+more devices; the port serves one). Not offered yet: the LM serving path
+(``--arch`` and its options), which comes with the LM framework.
 """
 from __future__ import annotations
 
@@ -111,7 +145,11 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
                      governor: bool = False, fused: str | None = None,
                      metrics_port: int | None = None, metrics_json: str = "",
                      flight_jsonl: str = "", flight_capacity: int = 4096,
-                     trace_json: str = "", device=None):
+                     trace_json: str = "", supervise: bool = False,
+                     state_store: str = "", snapshot_every: int = 1,
+                     fault_at: int | None = None,
+                     fault_kind: str = "dispatcher",
+                     outputs_jsonl: str = "", device=None):
     """Serve S synthetic TOOD streams through the batched window engine.
 
     ``use_async`` routes through the dispatch/collect
@@ -133,7 +171,21 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     ``summary``, the window accounting: ``submitted``, ``served``,
     ``shed`` and ``lost`` (submitted windows neither served nor shed),
     the engine's ``steps``, and ``launches``: each kernel's launches after
-    the warm-up (the encode's and the served steps')."""
+    the warm-up (the encode's and the served steps').
+
+    Fault tolerance: ``supervise`` (implied by ``fault_at``, and implying
+    the async runtime) wraps the engine in a
+    :class:`~repro_torch.serving.supervisor.ServeSupervisor`;
+    ``state_store`` points it at a JSONL session store (empty = in
+    memory), written every ``snapshot_every`` served windows.
+    ``fault_at``/``fault_kind`` inject one worker death; recovery replays
+    the lost windows, and any lost window raises SystemExit(3).
+    ``outputs_jsonl`` appends one fsync'd record per resolved window
+    (stream, seq, best classes, scores digest); a supervised process
+    killed mid-run resumes from its store, skipping each stream's windows
+    the store already covers. With observability on, the returned dict
+    also holds the supervisor's ``supervisor`` summary and
+    ``resumed_skip``."""
     from ..data import tood_synth as ts
     from ..device import resolve_device
     from ..kernels import build, ops
@@ -144,7 +196,8 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     if mesh_devices not in (0, 1):
         raise ValueError(f"mesh_devices={mesh_devices}: the port serves one "
                          "card (0 or 1)")
-    use_async = use_async or bool(rt) or governor
+    supervise = supervise or fault_at is not None
+    use_async = use_async or bool(rt) or governor or supervise
     dev = resolve_device(device)
     cfg = TorrConfig(**SERVE_CFG)
     world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim)
@@ -162,6 +215,9 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
             server = MetricsServer(registry, port=metrics_port)
             print(f"[serve/torr] metrics endpoint "
                   f"http://127.0.0.1:{server.start()}/metrics")
+    store, fault = _fault_plumbing(supervise, state_store, fault_at,
+                                   fault_kind, registry)
+    sup = None
     if use_async:
         from ..serving.async_engine import AsyncStreamEngine
         from ..serving.deadline import DeadlineTracker, policy_for
@@ -178,14 +234,32 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
         if governor:
             from ..control import Governor, policy_from_env
             gov = Governor(cfg, policy_from_env(rt), metrics=registry)
-        eng = AsyncStreamEngine(
-            cfg, sys_.im, n_slots=n_slots, serial=serial, fused=fused,
-            tracker=tracker, governor=gov, paused=True, metrics=registry,
-            flight=flight, tracer=tracer, device=dev)
+        def make_engine():
+            # the tracker and governor outlive rebuilds: their EMAs measure
+            # the workload, not one engine; the FaultPlan fires once, so a
+            # rebuilt engine runs clean
+            return AsyncStreamEngine(
+                cfg, sys_.im, n_slots=n_slots, serial=serial, fused=fused,
+                tracker=tracker, governor=gov, paused=True,
+                metrics=registry, flight=flight, tracer=tracer, store=store,
+                snapshot_every=snapshot_every, fault_plan=fault, device=dev)
+
+        if supervise:
+            from ..serving.supervisor import ServeSupervisor
+            sup = ServeSupervisor(make_engine, store, metrics=registry,
+                                  flight=flight)
+            eng = sup.engine
+            if server is not None:
+                server.set_ready(sup.health)    # /readyz mirrors recovery
+        else:
+            eng = make_engine()
     else:
         eng = StreamEngine(cfg, sys_.im, n_slots=n_slots, serial=serial,
                            fused=fused, metrics=registry, flight=flight,
-                           tracer=tracer, device=dev)
+                           tracer=tracer, store=store,
+                           snapshot_every=snapshot_every, fault_plan=fault,
+                           device=dev)
+    front = sup if sup is not None else eng
 
     R = torch.as_tensor(sys_.R).to(dev)
     n_tasks = world.relevance.shape[0]
@@ -197,8 +271,25 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     if use_async:
         eng.start()
     t_total = 0.0
-    submitted = served = shed = 0
+    submitted = served = shed = resumed_skip = 0
+    out_f = open(outputs_jsonl, "a", encoding="utf-8") \
+        if outputs_jsonl else None
+    out_lock = threading.Lock()
+
+    def ledger_cb(sid, seq):
+        # an async window's record is written as its future resolves (on
+        # the collector), before that step's snapshot put, so a snapshot
+        # covering a window implies its record is on disk: the resume
+        # path's no-gap invariant
+        def cb(fut):
+            if fut.cancelled() or fut.exception() is not None:
+                return
+            with out_lock:
+                _write_output(out_f, sid, seq, fut.result()[0])
+        return cb
+
     interrupted = False
+    engine_dead = None
     prev_handlers = None
     try:
         # handlers armed and the line printed inside the try: a signal that
@@ -211,30 +302,43 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
             wave = range(wave_start, min(wave_start + n_slots, n_streams))
             # synthesize and encode the wave's windows outside the timed
             # region: one encode call a stream, its frames' proposals
-            windows = []   # (stream_id, words, valid, boxes), in order
+            # (stream_id, words, valid, boxes, seq), in order
+            windows = []
             for s in wave:
                 task = s % n_tasks
-                eng.admit(f"stream{s}", sys_.task_w[task])
+                front.admit(f"stream{s}", sys_.task_w[task])
                 frames = ts.simulate_sequence(world, task, n_frames, seed=s,
                                               n_max=cfg.N_max)
+                # cross-process resume: the store already covers the first
+                # latest_seq windows of this (deterministic) stream, which
+                # a previous process served before it died
+                skip = 0
+                if sup is not None:
+                    skip = min(store.latest_seq(f"stream{s}"), len(frames))
+                    resumed_skip += skip
+                frames = frames[skip:]
+                if not frames:
+                    continue
                 feats = np.concatenate([f.feats for f in frames])
                 words = ops.encode_packed(feats, R, device=dev)
                 for t, f in enumerate(frames):
                     windows.append((f"stream{s}",
                                     words[t * cfg.N_max:(t + 1) * cfg.N_max],
-                                    f.valid, f.boxes))
+                                    f.valid, f.boxes, skip + t))
             futures = []   # (future, valid-mask), submission order
             t0 = time.time()
-            for sid, q, fvalid, fboxes in windows:
-                fut = eng.submit(sid, q, fvalid, fboxes)
+            for sid, q, fvalid, fboxes, seq in windows:
+                fut = front.submit(sid, q, fvalid, fboxes)
                 submitted += 1
                 if use_async:
+                    if out_f is not None:
+                        fut.add_done_callback(ledger_cb(sid, seq))
                     futures.append((fut, fvalid))
                 else:
                     valids.append(fvalid)
             if use_async:
                 from ..serving.deadline import WindowShed
-                eng.flush()
+                front.flush()
                 t_total += time.time() - t0
                 for fut, vmask in futures:
                     try:
@@ -242,6 +346,8 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
                     except WindowShed:
                         shed += 1
                         continue
+                    except EngineDead:
+                        continue    # lost: tallied by the zero-loss gate
                     served += 1
                     paths.append(np.asarray(tel.path))
                     valids.append(vmask)
@@ -250,25 +356,37 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
                 eng.sync()
                 t_total += time.time() - t0
                 for s in wave:
-                    for _wout, tel in results[f"stream{s}"]:
+                    for seq, (wout, tel) in enumerate(
+                            results[f"stream{s}"]):
                         served += 1
                         paths.append(tel.path.cpu().numpy())
+                        if out_f is not None:
+                            _write_output(out_f, f"stream{s}", seq, wout)
             for s in wave:
-                eng.retire(f"stream{s}")
+                front.retire(f"stream{s}")
     except KeyboardInterrupt:
         # SIGINT/SIGTERM (or a ^C): stop serving, but the artifact flush
         # below still runs on an interrupted run
         interrupted = True
         print("[serve/torr] interrupted: cancelling in-flight windows "
               "and flushing observability artifacts")
-    except EngineDead:
-        eng.close(drain=False)      # join the workers, then fail the run
-        raise
+    except EngineDead as e:
+        if sup is None:
+            eng.close(drain=False)  # join the workers, then fail the run
+            raise
+        engine_dead = e         # terminal: the supervisor ran out of restarts
+        print(f"[serve/torr] engine terminally dead: {e}")
     finally:
         if prev_handlers is not None:
             _restore_signal_handlers(prev_handlers)
 
-    if use_async:
+    if sup is not None:
+        try:
+            sup.close(drain=not interrupted and engine_dead is None)
+        except EngineDead:
+            pass    # already counted as lost windows
+        eng = sup.engine    # a recovery may have swapped the instance
+    elif use_async:
         eng.close(drain=not interrupted)
     launches = {k: n - launches0.get(k, 0) for k, n in build.LAUNCHES.items()}
     mode = "async" if use_async else "sync"
@@ -288,8 +406,20 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     if shed:
         print(f"[serve/torr] shed {shed} windows past deadline")
     lost = 0 if interrupted else submitted - served - shed
+    sup_summary = None
+    if sup is not None:
+        sup_summary = sup.summary()
+        print(f"[serve/torr] supervisor: restarts={sup_summary['restarts']} "
+              f"replayed={sup_summary['windows_replayed']} "
+              f"rerun={sup_summary['windows_rerun']} "
+              f"degraded={sup_summary['degraded']}")
+        if resumed_skip:
+            print(f"[serve/torr] resumed: skipped {resumed_skip} windows "
+                  "already covered by the state store")
     if lost:
         print(f"[serve/torr] LOST {lost} of {submitted} submitted windows")
+    if out_f is not None:
+        out_f.close()
     if use_async:
         summary = eng.deadline_summary()
         if summary is not None:
@@ -316,6 +446,7 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
                   f"(objective {ssum['objective']:.2f})")
 
     if registry is None:
+        _close_store(store)
         if lost:
             raise SystemExit(3)
         return None
@@ -348,10 +479,234 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
               "slo": slo, "metrics_text": metrics_text,
               "summary": eng.summary(), "interrupted": interrupted,
               "submitted": submitted, "served": served, "shed": shed,
-              "lost": lost, "steps": eng.stats.steps, "launches": launches}
+              "lost": lost, "steps": eng.stats.steps, "launches": launches,
+              "supervisor": sup_summary, "resumed_skip": resumed_skip}
+    _close_store(store)
     if lost:
         raise SystemExit(3)
     return result
+
+
+def run_torr_gateway(n_slots: int = 8, serial: bool = False, rt: str = "",
+                     governor: bool = False, fused: str | None = None,
+                     metrics_port: int | None = None, metrics_json: str = "",
+                     flight_jsonl: str = "", flight_capacity: int = 4096,
+                     trace_json: str = "", supervise: bool = False,
+                     state_store: str = "", snapshot_every: int = 1,
+                     fault_at: int | None = None,
+                     fault_kind: str = "dispatcher",
+                     gateway_port: int = 0, gateway_host: str = "127.0.0.1",
+                     gateway_rate: float = 200.0, gateway_burst: int = 100,
+                     gateway_deadline_ms: float = 2000.0,
+                     gateway_max_conns: int = 64,
+                     gateway_tenant_sessions: int = 8,
+                     run_seconds: float = 0.0, use_async: bool = True,
+                     device=None):
+    """Serve the TorR engine behind the network gateway until SIGTERM.
+
+    The same engine stack as :func:`run_torr_streams` (config, synthetic
+    TOOD world, observability, state store, chaos plan, supervisor), but
+    instead of driving synthetic streams in-process, a
+    :class:`~repro_torch.serving.gateway.Gateway` listens on
+    ``gateway_host:gateway_port`` (0 = ephemeral, printed as a
+    ``listening`` line once the socket accepts) and clients open tenant
+    sessions over real sockets. SIGINT/SIGTERM triggers the graceful
+    drain: stop accepting, finish in-flight requests, close the engine,
+    write every armed artifact, exit 0. ``run_seconds > 0`` bounds the
+    serve window; 0 serves until a signal arrives. ``use_async=False``
+    drives the sync engine through the
+    :class:`~repro_torch.serving.gateway.SyncDriver`. The engine runs on
+    ``device`` (the card by default)."""
+    from ..data import tood_synth as ts
+    from ..device import resolve_device
+    from ..runtime.fault import EngineDead
+    from ..serving import tood_pipelines as tp
+    from ..serving.gateway import Gateway, GatewayLimits, SyncDriver
+
+    supervise = supervise or fault_at is not None
+    use_async = use_async or bool(rt) or governor or supervise
+    dev = resolve_device(device)
+    cfg = TorrConfig(**SERVE_CFG)
+    world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim)
+    sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
+
+    registry = flight = server = tracer = slo = None
+    if metrics_port is not None or metrics_json or flight_jsonl or trace_json:
+        from ..obs import FlightRecorder, MetricsRegistry, MetricsServer
+        registry = MetricsRegistry()
+        flight = FlightRecorder(flight_capacity, metrics=registry)
+        if trace_json:
+            from ..obs import Tracer
+            tracer = Tracer(metrics=registry)
+        if metrics_port is not None:
+            server = MetricsServer(registry, port=metrics_port)
+            print(f"[serve/gateway] metrics endpoint "
+                  f"http://127.0.0.1:{server.start()}/metrics")
+    store, fault = _fault_plumbing(supervise, state_store, fault_at,
+                                   fault_kind, registry)
+    sup = driver = None
+    if use_async:
+        from ..serving.async_engine import AsyncStreamEngine
+        from ..serving.deadline import DeadlineTracker, policy_for
+        if governor and not rt:
+            rt = "RT-60"
+        tracker = None
+        if rt:
+            if registry is not None:
+                from ..obs import SLOMonitor
+                slo = SLOMonitor(metrics=registry, flight=flight)
+            tracker = DeadlineTracker(policy_for(rt), metrics=registry,
+                                      slo=slo)
+        gov = None
+        if governor:
+            from ..control import Governor, policy_from_env
+            gov = Governor(cfg, policy_from_env(rt), metrics=registry)
+
+        def make_engine():
+            return AsyncStreamEngine(
+                cfg, sys_.im, n_slots=n_slots, serial=serial, fused=fused,
+                tracker=tracker, governor=gov, paused=True,
+                metrics=registry, flight=flight, tracer=tracer, store=store,
+                snapshot_every=snapshot_every, fault_plan=fault, device=dev)
+
+        if supervise:
+            from ..serving.supervisor import ServeSupervisor
+            sup = ServeSupervisor(make_engine, store, metrics=registry,
+                                  flight=flight)
+            eng = sup.engine
+            if server is not None:
+                server.set_ready(sup.health)
+        else:
+            eng = make_engine()
+        front = sup if sup is not None else eng
+    else:
+        from ..serving.stream_engine import StreamEngine
+        eng = StreamEngine(cfg, sys_.im, n_slots=n_slots, serial=serial,
+                           fused=fused, metrics=registry, flight=flight,
+                           tracer=tracer, store=store,
+                           snapshot_every=snapshot_every, fault_plan=fault,
+                           device=dev)
+        driver = SyncDriver(eng, metrics=registry)
+        front = driver
+
+    eng.warmup()
+    if use_async:
+        eng.start()
+
+    limits = GatewayLimits(
+        rate_per_s=gateway_rate, burst=gateway_burst,
+        request_deadline_s=gateway_deadline_ms / 1e3,
+        max_connections=gateway_max_conns,
+        max_sessions_per_tenant=gateway_tenant_sessions)
+    gw = Gateway(front, cfg, sys_.task_w, limits=limits,
+                 host=gateway_host, port=gateway_port,
+                 metrics=registry, flight=flight)
+    if server is not None and sup is None:
+        server.set_ready(gw._front_health)
+
+    interrupted = False
+    prev_handlers = None
+    try:
+        prev_handlers = _install_signal_handlers()
+        gw.start()
+        # the handshake line: printed only once the socket accepts
+        print(f"[serve/gateway] listening on "
+              f"http://{gateway_host}:{gw.port} "
+              f"(SIGINT/SIGTERM drains and flushes artifacts) "
+              f"device={dev}", flush=True)
+        t_end = None if run_seconds <= 0 else time.time() + run_seconds
+        while t_end is None or time.time() < t_end:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        interrupted = True
+        print("[serve/gateway] signal received: draining", flush=True)
+    finally:
+        if prev_handlers is not None:
+            _restore_signal_handlers(prev_handlers)
+
+    drained = gw.drain(timeout=max(10.0, 2 * limits.request_deadline_s))
+    gw.close()
+    summary = gw.summary()
+    print(f"[serve/gateway] drained={drained} sessions={summary['sessions']}")
+    if sup is not None:
+        try:
+            sup.close(drain=False)
+        except EngineDead:
+            pass
+        eng = sup.engine
+        s = sup.summary()
+        print(f"[serve/gateway] supervisor: restarts={s['restarts']} "
+              f"replayed={s['windows_replayed']} rerun={s['windows_rerun']} "
+              f"degraded={s['degraded']}")
+    elif driver is not None:
+        driver.close()
+    else:
+        try:
+            eng.close(drain=False)
+        except EngineDead:
+            pass
+
+    if registry is not None:
+        eng.flush_telemetry()
+        if server is not None:
+            server.close()
+        if metrics_json:
+            from ..obs import write_json_snapshot
+            write_json_snapshot(registry, metrics_json)
+            print(f"[serve/gateway] metrics snapshot -> {metrics_json}")
+        if flight_jsonl:
+            n_rec = flight.dump_jsonl(flight_jsonl)
+            print(f"[serve/gateway] flight recorder: {n_rec} records -> "
+                  f"{flight_jsonl}")
+        if trace_json:
+            from ..obs import write_chrome_trace
+            n_ev = write_chrome_trace(flight.records(), trace_json)
+            print(f"[serve/gateway] chrome trace: {n_ev} events -> "
+                  f"{trace_json}")
+    _close_store(store)
+    print(f"[serve/gateway] exit 0 (interrupted={interrupted})", flush=True)
+    return {"registry": registry, "flight": flight, "drained": drained,
+            "summary": summary,
+            "supervisor": sup.summary() if sup is not None else None}
+
+
+def _fault_plumbing(supervise, state_store, fault_at, fault_kind, registry):
+    """The session store (JSONL at ``state_store``, else in memory when
+    supervising, else None) and the chaos plan (None without
+    ``fault_at``). The plan is shared by every rebuilt engine: it fires
+    once, so a replacement engine runs clean."""
+    store = fault = None
+    if supervise or state_store:
+        from ..serving.state_store import (InMemoryStateStore,
+                                           JsonlStateStore)
+        store = (JsonlStateStore(state_store, metrics=registry)
+                 if state_store else InMemoryStateStore(metrics=registry))
+    if fault_at is not None:
+        from ..runtime.fault import FaultPlan
+        fault = FaultPlan(at_step=fault_at, thread=fault_kind,
+                          kind=fault_kind)
+    return store, fault
+
+
+def _close_store(store) -> None:
+    if store is not None and hasattr(store, "close"):
+        store.close()
+
+
+def _write_output(f, sid, seq, wout) -> None:
+    """Append one resolved window's output record, fsync'd (the SIGKILL
+    recovery check diffs these ledgers across runs, so a record must
+    never be half-written): the stream, its seq, and the gateway's
+    response body for the window (best classes and the scores' digest)."""
+    import json
+    import os
+
+    from ..serving.protocol import window_result_body
+
+    rec = {"stream": sid, **window_result_body(seq, wout)}
+    f.write(json.dumps(rec) + "\n")
+    f.flush()
+    os.fsync(f.fileno())
 
 
 def main(argv=None) -> None:
@@ -404,13 +759,79 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-json", default="", metavar="PATH",
                     help="arm per-window causal tracing and write a Chrome "
                          "trace-event JSON")
+    ap.add_argument("--supervise", action="store_true",
+                    help="wrap the engine in a ServeSupervisor: worker "
+                         "death rebuilds the engine, re-admits streams warm "
+                         "from the state store and replays in-flight "
+                         "windows (implies --async)")
+    ap.add_argument("--state-store", default="", metavar="PATH",
+                    help="file-backed JSONL session store (a SIGKILLed run "
+                         "resumes from it); default with --supervise is "
+                         "in memory")
+    ap.add_argument("--snapshot-every", type=int, default=1, metavar="N",
+                    help="write a stream's session snapshot through every "
+                         "N served windows (default 1)")
+    ap.add_argument("--fault-at", type=int, default=None, metavar="STEP",
+                    help="chaos harness: kill the engine worker at this "
+                         "dispatched-step index (implies --supervise)")
+    ap.add_argument("--fault-kind", default="dispatcher",
+                    choices=["dispatcher", "collector"],
+                    help="which worker thread the injected fault kills "
+                         "(default dispatcher)")
+    ap.add_argument("--outputs-jsonl", default="", metavar="PATH",
+                    help="append one fsync'd record per resolved window "
+                         "(stream, seq, best classes, scores digest)")
+    ap.add_argument("--gateway-port", type=int, default=None, metavar="PORT",
+                    help="serve the network gateway on this port (0 = "
+                         "ephemeral, printed at startup) instead of "
+                         "driving synthetic streams in-process; runs until "
+                         "SIGTERM, then drains")
+    ap.add_argument("--gateway-host", default="127.0.0.1")
+    ap.add_argument("--gateway-rate", type=float, default=200.0,
+                    metavar="N", help="per-tenant token-bucket refill "
+                    "rate, windows/s (default 200)")
+    ap.add_argument("--gateway-burst", type=int, default=100, metavar="N",
+                    help="per-tenant token-bucket depth (default 100)")
+    ap.add_argument("--gateway-deadline-ms", type=float, default=2000.0,
+                    metavar="MS", help="default per-request wait budget "
+                    "before a window parks with 503 (default 2000)")
+    ap.add_argument("--gateway-max-conns", type=int, default=64, metavar="N")
+    ap.add_argument("--gateway-tenant-sessions", type=int, default=8,
+                    metavar="N", help="per-tenant session quota (default 8)")
+    ap.add_argument("--gateway-seconds", type=float, default=0.0,
+                    metavar="S", help="bound the serve window (0 = until "
+                    "a signal)")
+    ap.add_argument("--gateway-sync", action="store_true",
+                    help="drive the sync StreamEngine through the "
+                         "SyncDriver instead of the async runtime "
+                         "(incompatible with --rt/--governor/--supervise)")
     ap.add_argument("--device", default=None,
                     help="where the engine runs (default: the card; cpu "
                          "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.gateway_port is not None:
+        run_torr_gateway(
+            n_slots=args.torr_slots or 8, serial=args.torr_serial,
+            rt=args.rt, governor=args.governor,
+            fused=args.torr_fused or None,
+            metrics_port=args.metrics_port, metrics_json=args.metrics_json,
+            flight_jsonl=args.flight_jsonl,
+            flight_capacity=args.flight_capacity,
+            trace_json=args.trace_json, supervise=args.supervise,
+            state_store=args.state_store,
+            snapshot_every=args.snapshot_every, fault_at=args.fault_at,
+            fault_kind=args.fault_kind, gateway_port=args.gateway_port,
+            gateway_host=args.gateway_host, gateway_rate=args.gateway_rate,
+            gateway_burst=args.gateway_burst,
+            gateway_deadline_ms=args.gateway_deadline_ms,
+            gateway_max_conns=args.gateway_max_conns,
+            gateway_tenant_sessions=args.gateway_tenant_sessions,
+            run_seconds=args.gateway_seconds,
+            use_async=not args.gateway_sync, device=args.device)
+        return
     if args.torr_streams <= 0:
-        ap.error("--torr-streams N is required (the LM serving path is not "
-                 "ported)")
+        ap.error("--torr-streams N or --gateway-port PORT is required (the "
+                 "LM serving path is not ported)")
     run_torr_streams(args.torr_streams, args.torr_frames, args.torr_slots,
                      serial=args.torr_serial, use_async=args.use_async,
                      mesh_devices=args.mesh, rt=args.rt,
@@ -419,7 +840,11 @@ def main(argv=None) -> None:
                      metrics_json=args.metrics_json,
                      flight_jsonl=args.flight_jsonl,
                      flight_capacity=args.flight_capacity,
-                     trace_json=args.trace_json, device=args.device)
+                     trace_json=args.trace_json, supervise=args.supervise,
+                     state_store=args.state_store,
+                     snapshot_every=args.snapshot_every,
+                     fault_at=args.fault_at, fault_kind=args.fault_kind,
+                     outputs_jsonl=args.outputs_jsonl, device=args.device)
 
 
 if __name__ == "__main__":

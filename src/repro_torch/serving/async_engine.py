@@ -68,6 +68,15 @@ EWMA. ``fused="auto"`` folds each step's full-path fraction on the
 collector. A worker error (a capture, a replay, a copy) fails every
 pending future with :class:`~repro_torch.runtime.fault.EngineDead`;
 nothing falls back to another path.
+
+Session state: with ``store=`` the dispatcher takes each step's snapshot
+rows (references to the post-step state, no device call) and the
+collector writes them only after the futures of the step they cover have
+been resolved, so a snapshot covering a window implies its result was
+delivered. The collector copies the state's stacked leaves once a step,
+on its own stream after the step's event, into pinned memory (never a
+``.cpu()`` on the dispatcher's stream). :meth:`abandon` stops the workers
+without joining them, for a supervisor's recovery.
 """
 from __future__ import annotations
 
@@ -75,6 +84,7 @@ import contextlib
 import queue
 import threading
 import time
+import traceback
 from concurrent.futures import Future
 from typing import Dict
 
@@ -100,6 +110,24 @@ assert (GATE_ADMIT, GATE_ESCALATE, GATE_SHED) == (
     Decision.ADMIT, Decision.ESCALATE, Decision.SHED)
 
 
+def _detach_frames(exc) -> None:
+    """Keep the stack of a worker's fatal exception (and of the exceptions
+    it was raised from) as a note on it, and drop its frames. A worker's
+    frames hold the engine (``self``) and the engine holds its death, so
+    with the frames kept a dead engine, and on the card its graph family,
+    would be freed only when the cyclic garbage collector finds the cycle:
+    a supervisor's rebuilds would pile dead families up. The note is
+    printed with the exception, so no line of the stack is lost."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if exc.__traceback__ is not None:
+            exc.add_note("worker stack:\n" + "".join(
+                traceback.format_tb(exc.__traceback__)).rstrip())
+            exc.__traceback__ = None
+        exc = exc.__cause__ or exc.__context__
+
+
 def _on(stream):
     """``torch.cuda.stream(stream)``, or nothing on the CPU."""
     return torch.cuda.stream(stream) if stream is not None \
@@ -118,7 +146,8 @@ class AsyncStreamEngine(StreamEngine):
                  pipeline_depth: int = 2,
                  tracker: DeadlineTracker | None = None, governor=None,
                  paused: bool = False, metrics=None, flight=None,
-                 tracer=None, fault_plan=None, *, device=None):
+                 tracer=None, store=None, snapshot_every: int = 1,
+                 fault_plan=None, *, device=None):
         if governor is not None and tracker is None:
             raise ValueError(
                 "the QoS governor is slack-driven: pass a DeadlineTracker "
@@ -139,6 +168,7 @@ class AsyncStreamEngine(StreamEngine):
                              serial=serial, fused=fused,
                              bucket_cap=bucket_cap, decide=decide,
                              metrics=metrics, flight=flight, tracer=tracer,
+                             store=store, snapshot_every=snapshot_every,
                              fault_plan=fault_plan, device=device)
         # async phase spans (the sync step() spans are unused here); each
         # runs on exactly one daemon thread
@@ -209,6 +239,34 @@ class AsyncStreamEngine(StreamEngine):
         if drain_err is not None:
             raise drain_err
 
+    def abandon(self) -> None:
+        """Stop signal without joining the worker threads.
+
+        The supervisor's recovery path runs under its own lock, which a
+        collector in the middle of a delivery may be waiting on inside a
+        done-callback: ``close()``'s joins would deadlock there. Workers
+        see the stop flag and exit on their own; windows queued but not
+        delivered stay pending on the supervisor's journal and are
+        replayed by the replacement engine, and a late delivery from this
+        engine is either bit-equal
+        (the same snapshot lineage replayed) or dropped by the
+        supervisor's epoch and status guards. A late snapshot cannot
+        regress the store (its ``put`` is monotonic in ``window_seq``)."""
+        if not self._started:
+            return
+        with self._work:
+            self._stop = True
+            self._work.notify_all()
+        # unblock a dispatcher parked on a full collect queue (collector
+        # death) and wake a collector parked on an empty one
+        try:
+            while True:
+                self._collect_q.get_nowait()
+        except queue.Empty:
+            pass
+        self._collect_q.put(None)
+        self._started = False
+
     def __enter__(self) -> "AsyncStreamEngine":
         return self
 
@@ -225,9 +283,9 @@ class AsyncStreamEngine(StreamEngine):
 
     # -- admission / submission (caller threads) ----------------------------
 
-    def admit(self, stream_id, task_w) -> int:
+    def admit(self, stream_id, task_w, snapshot=None) -> int:
         with self._lock, _on(self._stream):
-            return super().admit(stream_id, task_w)
+            return super().admit(stream_id, task_w, snapshot=snapshot)
 
     def retire(self, stream_id) -> None:
         """Drop the stream's backlog (cancelling its futures) and free its
@@ -441,6 +499,11 @@ class AsyncStreamEngine(StreamEngine):
                         self.stats.steps += 1
                         self.stats.windows += len(served)
                         self.stats.pad_slots += self.n_slots - len(served)
+                        # references to the post-step state; the collector
+                        # copies and writes them after the step's windows
+                        # are delivered
+                        snaps = self._collect_snaps(served) \
+                            if self._store is not None else None
                         rec = None
                         if self._obs is not None:
                             gov = None
@@ -473,7 +536,7 @@ class AsyncStreamEngine(StreamEngine):
                 # bounded queue = pipeline depth: block here (not holding
                 # the lock) instead of racing ahead of the device
                 self._collect_q.put(
-                    (served, out, tel, t0, rec, step_ctxs, ready))
+                    (served, out, tel, t0, rec, step_ctxs, ready, snaps))
                 if self._error is not None:
                     # the collector died while we were blocked in put():
                     # _fail's drain ran before our item landed, so nobody
@@ -507,7 +570,7 @@ class AsyncStreamEngine(StreamEngine):
                     # unresolved (their futures fail via _fail)
                     self._fault.maybe_fire("collector", n_collected)
                 n_collected += 1
-                served, out, tel, t0, rec, ctxs, ready = item
+                served, out, tel, t0, rec, ctxs, ready, snaps = item
                 # traced steps re-open their context scope on the collector
                 # thread: the device/drain spans stamp onto the same
                 # windows the dispatcher's spans did
@@ -519,7 +582,7 @@ class AsyncStreamEngine(StreamEngine):
                     dur = time.monotonic() - t0
                     with self._sp_drain:
                         digest = self._drain_item(served, out, tel, rec,
-                                                  dur, ready)
+                                                  dur, ready, snaps)
                 # finish *after* the drain span exits so collector_drain is
                 # part of the serialized per-window event list
                 if ctxs:
@@ -527,7 +590,7 @@ class AsyncStreamEngine(StreamEngine):
         except BaseException as e:  # noqa: BLE001
             self._fail(e)
 
-    def _drain_item(self, served, out, tel, rec, dur, ready):
+    def _drain_item(self, served, out, tel, rec, dur, ready, snaps=None):
         """Move one retired step to the host and resolve its windows;
         returns the step's telemetry digest (for trace completion), or None
         when nothing downstream needs it."""
@@ -571,6 +634,13 @@ class AsyncStreamEngine(StreamEngine):
         with self._settled:
             self._inflight -= len(served)
             self._settled.notify_all()
+        if snaps:
+            # written strictly after the set_result loop above: a snapshot
+            # whose window_seq covers a window implies that window's result
+            # was delivered, which keeps the cross-process resume (skip the
+            # first latest_seq windows) gap-free; duplicates on a replay are
+            # fine (at-least-once)
+            self._put_snaps(snaps, ready)
         return digest
 
     def _drain_collect(self) -> list:
@@ -606,6 +676,7 @@ class AsyncStreamEngine(StreamEngine):
         tname = threading.current_thread().name
         role = {"torr-dispatch": "dispatcher",
                 "torr-collect": "collector"}.get(tname, tname)
+        _detach_frames(exc.cause if isinstance(exc, EngineDead) else exc)
         doomed = []
         with self._work:
             dead = exc if isinstance(exc, EngineDead) else EngineDead(

@@ -8,8 +8,9 @@ drains one window per busy slot as a padded :class:`StreamBatch`.
 
 Scheduling contract:
 
-  * ``admit(stream_id, task_w)`` binds a stream to a free slot and resets
-    that slot's cache (no cross-stream reuse leaks).
+  * ``admit(stream_id, task_w, snapshot=None)`` binds a stream to a free
+    slot and resets that slot's cache (no cross-stream reuse leaks), or
+    warm-starts it from a state-store snapshot.
   * ``submit(stream_id, q_packed, valid, boxes)`` enqueues one window.
   * ``step()`` pops the head window of every busy slot, pads idle slots
     (valid all-False: the pipeline's pad branch leaves their cache
@@ -48,6 +49,15 @@ The step's telemetry is folded one step late (the deferred fold): it is
 copied to the host on a side stream that waits for that step alone, so the
 host never waits for the step it just launched. ``fault_plan=`` (a
 ``runtime.fault.FaultPlan``) fires at the step boundaries.
+
+Externalized session state (``serving.state_store``): with ``store=``
+attached, every stream's cache rows and task weights write through every
+``snapshot_every`` served windows. The rows are taken as a reference to
+the post-step state right after the dispatch (no device call) and
+materialized on the deferred fold, one copy per stacked leaf on the side
+stream after the step's event, so the hot path never waits for a
+snapshot; ``admit(snapshot=)`` warm-starts a slot from one, and
+``retire`` deletes the stream's state.
 
 ``jit=True`` (the default, where ``repro`` has it) runs the step through
 the engine's :class:`~repro_torch.core.capture.GraphFamily`: each static
@@ -154,7 +164,8 @@ class StreamEngine:
                  jit: bool = True, serial: bool = False,
                  fused: str | None = None, bucket_cap: int | None = None,
                  decide: str | None = None, metrics=None, flight=None,
-                 tracer=None, fault_plan=None, *, device=None):
+                 tracer=None, store=None, snapshot_every: int = 1,
+                 fault_plan=None, *, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.im = im.to(self.device)
@@ -201,6 +212,12 @@ class StreamEngine:
         self._sp_dispatch = sp("dispatch_enqueue")
         self._sp_observe = sp("host_observe")
         self._last_resolved = (self._fused, self._bucket_cap, self._decide)
+        # externalized session state: each stream's served windows count
+        # toward the snapshot cadence; the snapshot rows are sliced lazily
+        # at dispatch and materialized on the deferred fold
+        self._store = store
+        self._snapshot_every = max(1, int(snapshot_every))
+        self._served_count: Dict[object, int] = {}
         self._fault = fault_plan
         S, N = n_slots, cfg.N_max
         self._staging_shapes = (((S, N, cfg.words), torch.int32),
@@ -217,8 +234,14 @@ class StreamEngine:
 
     # -- admission control --------------------------------------------------
 
-    def admit(self, stream_id, task_w) -> int:
-        """Bind a stream to a free slot; returns the slot index."""
+    def admit(self, stream_id, task_w, snapshot=None) -> int:
+        """Bind a stream to a free slot; returns the slot index.
+
+        ``snapshot`` (a :class:`~repro_torch.serving.state_store.
+        StreamSnapshot`, or None) warm-starts the slot: the snapshot's
+        cache rows and task-weight row overwrite the freshly reset slot,
+        and the stream's served-window count resumes from
+        ``snapshot.window_seq``."""
         if stream_id in self._slot_of:
             raise ValueError(f"stream {stream_id!r} already admitted")
         if not self._free:
@@ -236,6 +259,13 @@ class StreamEngine:
             cache=query_cache.reset_slot(self._state.cache, self.cfg, slot),
             task_weights=task_weights,
         )
+        if snapshot is not None:
+            from . import state_store as ss
+            self._state = ss.restore_slot(self._state, self.cfg, slot,
+                                          snapshot)
+            self._served_count[stream_id] = int(snapshot.window_seq)
+        else:
+            self._served_count[stream_id] = 0
         self.stats.admitted += 1
         if self._obs is not None:
             self._obs.on_admit()
@@ -249,6 +279,9 @@ class StreamEngine:
         self._pending[slot].clear()
         self._free.append(slot)
         self.stats.retired += 1
+        self._served_count.pop(stream_id, None)
+        if self._store is not None:
+            self._store.delete(stream_id)
         if self._obs is not None:
             self._obs.on_retire(n_dropped)
 
@@ -406,19 +439,24 @@ class StreamEngine:
         """Every tensor of ``tree`` as a host numpy array. On the card the
         copies run on a side stream that waits for ``ready`` (the event
         recorded right after the step that made them), not behind whatever
-        was launched since, into pinned buffers; the caller keeps ``tree``
-        alive until this returns."""
+        was launched since, into pinned buffers, and each leaf is recorded
+        on that stream, so its memory is not handed out again before the
+        copy has read it; the caller keeps ``tree`` alive until this
+        returns."""
         if ready is None:
             return capture.tree_map(lambda x: x.numpy(), tree)
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         stream = self._copy_stream
         stream.wait_event(ready)
+
+        def copy(x):
+            x.record_stream(stream)
+            return torch.empty(x.shape, dtype=x.dtype,
+                               pin_memory=True).copy_(x, non_blocking=True)
+
         with torch.cuda.stream(stream):
-            host = capture.tree_map(
-                lambda x: torch.empty(x.shape, dtype=x.dtype,
-                                      pin_memory=True).copy_(
-                                          x, non_blocking=True), tree)
+            host = capture.tree_map(copy, tree)
             done = stream.record_event()
         done.synchronize()
         return capture.tree_map(lambda x: x.numpy(), host)
@@ -430,10 +468,62 @@ class StreamEngine:
             return None
         return torch.cuda.current_stream(self.device).record_event()
 
-    def _fold_one(self, tel, rec, ctxs, ready) -> None:
+    # -- externalized session state (write-through snapshots) ----------------
+
+    def _snap_meta(self) -> dict:
+        """Host metadata stamped into every snapshot: the engine family,
+        the auto dispatcher's path-mix EWMA (so a warm-started engine
+        resumes load-aware dispatch where the dead one left off), and the
+        latched knob plan, if any."""
+        meta = {"engine": self._ENGINE, "full_ewma": float(self._full_ewma)}
+        if self._plan is not None:
+            meta["plan"] = {"banks": int(self._plan.banks),
+                            "planes": int(self._plan.planes)}
+        return meta
+
+    def _collect_snaps(self, served):
+        """Advance served-window counts and take the snapshot rows of the
+        streams that hit the ``snapshot_every`` cadence this step.
+
+        Called right after ``_dispatch`` (the state is the post-step tree),
+        under the async engine's lock. The rows are references to that
+        tree (``state_store.snapshot_rows``), no device call: they are
+        materialized on the deferred fold (sync) or the collector after
+        the step's event (async), so the dispatcher never waits for a
+        snapshot, and nothing inside a captured segment reads or writes
+        the store."""
+        from . import state_store as ss
+        snaps = []
+        for stream_id, slot, _extra in served:
+            n = self._served_count.get(stream_id, 0) + 1
+            self._served_count[stream_id] = n
+            if n % self._snapshot_every == 0:
+                snaps.append(ss.snapshot_rows(
+                    self._state, slot, stream_id, n, self._snap_meta()))
+        return snaps
+
+    def _put_snaps(self, snaps, ready) -> None:
+        """Materialize and write the snapshots of one step: one copy to
+        the host per stacked leaf (``_to_host``: on the card a side stream
+        that waits for the step's event ``ready``, into pinned memory),
+        then the store's puts."""
+        from . import state_store as ss
+
+        def to_host(state):
+            if ready is None:   # the CPU: a copy, not a view of the state
+                state = capture.tree_map(torch.clone, state)
+            return self._to_host(state, ready)
+
+        memo = {}
+        for pending in snaps:
+            self._store.put(ss.materialize_snapshot(pending, memo, to_host))
+
+    def _fold_one(self, tel, rec, ctxs, ready, snaps=None) -> None:
         """Move one backlogged step's telemetry to the host and consume it:
         the auto dispatcher's path-mix EWMA, the observer's digest and
-        flight record (``rec``, or None), and the step's trace contexts."""
+        flight record (``rec``, or None), the step's trace contexts, and
+        its pending state-store snapshots (materialized and written here,
+        off the dispatch path)."""
         tel_h = self._to_host(tel, ready)
         if self._auto:
             self._observe_path_mix(tel_h.path, tel_h.n_valid)
@@ -444,6 +534,8 @@ class StreamEngine:
             if digest is None:
                 digest = telemetry_digest(tel_h)
             self._trace_finish(ctxs, rec, digest)
+        if snaps:
+            self._put_snaps(snaps, ready)
 
     def _trace_finish(self, ctxs, rec, digest) -> None:
         """Complete one step's trace contexts: stamp the resolved plan and
@@ -545,8 +637,11 @@ class StreamEngine:
         self.stats.steps += 1
         self.stats.windows += len(served)
         self.stats.pad_slots += self.n_slots - len(served)
+        snaps = self._collect_snaps(served) \
+            if self._store is not None else None
 
-        if self._auto or self._obs is not None or self._tracer is not None:
+        if self._auto or self._obs is not None or self._tracer is not None \
+                or self._store is not None:
             rec = None
             if self._obs is not None:
                 rec = self._obs.on_dispatch(
@@ -559,7 +654,7 @@ class StreamEngine:
             # deferred fold: this step's telemetry enters the backlog, and
             # only entries at least one dispatch old are consumed now
             self._tel_backlog.append((tel, rec, step_ctxs,
-                                      self._ready_event()))
+                                      self._ready_event(), snaps))
             with self._sp_observe:
                 self._fold_telemetry()
 
@@ -580,10 +675,13 @@ class StreamEngine:
         return acc
 
     def sync(self) -> None:
-        """Block until all launched work has finished on the device; timing
-        code calls this before reading the clock."""
+        """Block until all work launched on this thread's stream (every
+        step's, and what it waited for) has finished; timing code calls
+        this before reading the clock. A stream's sync, not the device's:
+        a device-wide sync is invalid while any thread captures a graph,
+        as a supervisor's rebuilt engine may beside an abandoned one."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def summary(self) -> Dict[str, float]:
         """Engine counters as a flat dict (folds every deferred step's
