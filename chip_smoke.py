@@ -150,20 +150,46 @@ bit:
      same responses; then ``drain()`` with a window held in flight:
      ``/readyz`` 503 not ready and a new window 503 ``draining``; request
      latency p50/p99 and the retries printed.
+ 14. the front end (run after 13, before 10): (a) ``aggregate_window``
+     and ``eq1_frame`` on numpy-seeded event batches with padding and
+     out-of-range entries at T_bins 4 x 16 x 16 and 4 x 15 x 17, bit-equal
+     to the CPU; (b) ``encode_batch`` over 128 proposals (torr_edge's
+     N_max) of 4 x 32 x 32 windows aggregated on the card, at
+     ``EncoderConfig()``, with cuDNN's global TF32 flag set to True around
+     the calls: z_e held to the CPU per proposal (rtol and atol 1e-5; a
+     proposal whose CPU membrane potential came within 1e-4 of the
+     threshold may miss it, at most 1 %), the bridge loss's gradients per
+     tensor (||card - cpu|| <= 1e-4 ||cpu||, over the proposals not
+     excused), ``query_hv`` with torr_edge's R (D = 8192) by the agreement
+     rule, its ``sign_project`` launches counted; ms per ``encode_batch``;
+     (c) ``examples.train_bridge.main([])`` converging by the reference's
+     assertion, s/step; (d) 32 decode steps of ``rerank_step`` at
+     qwen3-14b's widths (d_model 5120, vocab 151936) under the launcher's
+     reranker config (D 2048, B 8, M 256, batch 4), hidden states drifting
+     slowly and jumping twice: each step's q held to the CPU's encode by
+     the agreement rule, the CPU fed the card's q bit-equal in rho,
+     bypassed and state and within rtol 1e-5 in the logits, both paths
+     taken, ``sign_project_pack`` and ``packed_hamming_batched`` launched
+     once a step; ms per step, the bypass rate and both kernels timed at
+     the step's shapes.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
 capture recorded (``GraphFamily``), so the counts keep their meaning.
 Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
 rows (captured and eager ms/step, windows/s, idle share), the async vs
-sync rows, the supervised and gateway rows and the per-kernel report are
+sync rows, the supervised, gateway and front-end rows and the per-kernel
+report (with each kernel's ``front_end_launches`` from phase 14) are
 printed as JSON before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
+import math
 import statistics
 import sys
 import threading
@@ -216,6 +242,12 @@ def log(*a):
 
 def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     """Median CUDA-event time of ``fn`` in ms."""
+    return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def cuda_times(fn, reps=REPS, warmup=3) -> list[float]:
+    """CUDA-event times of ``reps`` calls of ``fn`` in ms, each call from an
+    idle stream (the host's launch time is counted)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -228,7 +260,18 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def spread(times) -> dict:
+    """Median, least and most of a list of times, and their number."""
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times), n=len(times))
+
+
+def fmt_spread(sp: dict, unit="ms") -> str:
+    return (f"median {sp['median']:.4f} {unit} (min {sp['min']:.4f}, max "
+            f"{sp['max']:.4f}, {sp['n']} runs)")
 
 
 def device_ms(fn, calls=20, reps=10) -> float:
@@ -2691,6 +2734,462 @@ def _drain_check(gw, front, frames, words, n, T):
                 held_window=held["status"], drained=drained["ok"])
 
 
+# -- phase 14: the event front end, the encoder, the bridge, the reranker ----
+
+FE_EVENTS = 512             # (a): events a padded batch holds
+FE_DT = 0.004               # a window's width in seconds
+# (a): (dt, T_bins) whose bin edges are held card to CPU (the phase's own
+# and those of tests/test_torch_events.py's edge test)
+FE_EDGE_CASES = ((FE_DT, 4), (0.003, 4), (1e-3, 7), (0.05, 3))
+FE_PROPOSALS = 128          # (b): proposals encoded at once (torr_edge N_max)
+FE_WINDOW = (4, 32, 32)     # (b): T_bins, H, W of a proposal's window
+FE_TOL = 1e-5               # (b): z_e rtol and atol, per proposal
+FE_EXCUSE = 1e-4            # (b): a potential this close to the threshold
+FE_GRAD_TOL = 1e-4          # (b): ||g_card - g_cpu|| / ||g_cpu|| per tensor
+# (b): a convolution wider than the encoder's (N, c_in, c_out, size), where
+# cuDNN is likelier to take TF32 under the global flag
+FE_WIDE_CONV = (128, 64, 64, 32)
+# (d): qwen3-14b's widths (src/repro/configs/registry.py:68) under the
+# launcher's reranker config (src/repro/launch/serve.py:908-913)
+RR_D_MODEL, RR_VOCAB, RR_BATCH, RR_STEPS = 5120, 151936, 4, 32
+RR_JUMPS = (10, 21)         # (d): decode steps whose hidden state jumps
+RR_LOGIT_RTOL = 1e-5
+RR_LOOPS = 5                # (d): timed runs of the 32 steps, the first counted
+
+
+def _fe_events(seed, n, height, width):
+    """A padded event batch, drawn with numpy: events past every edge (x, y
+    outside the frame, t < 0 and t >= dt, polarity outside {0, 1}) and a
+    count below the capacity, so padding must add nothing."""
+    from repro_torch import convert
+
+    rng = np.random.default_rng(seed)
+    return convert.event_batch_from_numpy(
+        x=rng.integers(-2, width + 2, n), y=rng.integers(-2, height + 2, n),
+        t=rng.uniform(-0.1 * FE_DT, 1.1 * FE_DT, n),
+        p=rng.integers(-1, 3, n), count=int(rng.integers(n // 2, n)))
+
+
+def _fe_events_phase():
+    """(a) ``aggregate_window`` and ``eq1_frame`` on the card, bit-equal to
+    the port's CPU run, at T_bins 4 x 16 x 16 and 4 x 15 x 17."""
+    from repro_torch.core import events
+
+    for height, width in ((16, 16), (15, 17)):
+        for seed in range(4):
+            ev = _fe_events(100 * height + seed, FE_EVENTS, height, width)
+            for name, fn in (
+                    ("aggregate_window", lambda e: events.aggregate_window(
+                        e, FE_DT, 4, height, width)),
+                    ("eq1_frame", lambda e: events.eq1_frame(e, height,
+                                                             width))):
+                got, want = fn(ev.to("cuda")), fn(ev)
+                if not bits_equal(got, want):
+                    raise AssertionError(f"events: {name} at {height}x"
+                                         f"{width}, seed {seed} != the CPU")
+    log(f"[front end] (a) aggregate_window and eq1_frame at 4x16x16 and "
+        f"4x15x17, {FE_EVENTS} events a batch with padding and "
+        f"out-of-range entries, 4 batches each: bit-equal to the CPU")
+    _fe_edges_phase()
+
+
+def _fe_edge_times(dt, t_bins):
+    """float32 times on and one ulp either side of every bin edge from -dt
+    / t_bins to dt + dt / t_bins, and every whole microsecond from -dt / 4
+    to 5 dt / 4 (a DVS sensor's timestamps)."""
+    edges = np.arange(-1, t_bins + 2, dtype=np.float64) * dt / t_bins
+    us = np.arange(round(-0.25 * dt * 1e6), round(1.25 * dt * 1e6) + 1)
+    return np.concatenate([edges, np.nextafter(edges, -np.inf),
+                           np.nextafter(edges, np.inf),
+                           us * 1e-6]).astype(np.float32)
+
+
+def _fe_edges_phase():
+    """(a) ``aggregate_window`` on the card bit-equal to the CPU where the
+    time bin's rounding matters: times on and beside the bin edges, and
+    whole microseconds, at each of ``FE_EDGE_CASES`` (the CPU is held to
+    ``repro`` there by tests/test_torch_events.py). Also counts the times
+    that a Python-float divisor (which PyTorch's CUDA kernel turns into a
+    product by the reciprocal) would bin otherwise on the card than on
+    the CPU; that count is read, not held."""
+    from repro_torch import convert
+    from repro_torch.core import events
+
+    height, width = 16, 16
+    n_times = scalar_differ = 0
+    for dt, t_bins in FE_EDGE_CASES:
+        t = _fe_edge_times(dt, t_bins)
+        n = t.size
+        ev = convert.event_batch_from_numpy(
+            x=np.arange(n) % width, y=(np.arange(n) // width) % height, t=t,
+            p=np.arange(n) % 2, count=n)
+        got = events.aggregate_window(ev.to("cuda"), dt, t_bins, height,
+                                      width)
+        want = events.aggregate_window(ev, dt, t_bins, height, width)
+        if not bits_equal(got, want):
+            raise AssertionError(f"events: aggregate_window at the bin "
+                                 f"edges, dt {dt}, T_bins {t_bins} != the "
+                                 f"CPU")
+        card = (ev.t.cuda() / dt * t_bins).to(torch.int32).cpu()
+        scalar_differ += int((card != (ev.t / dt * t_bins).to(
+            torch.int32)).sum())
+        n_times += n
+    log(f"[front end] (a) aggregate_window at the bin edges ({n_times} "
+        f"times on, beside and between the edges, whole microseconds, "
+        f"(dt, T_bins) in {FE_EDGE_CASES}): bit-equal to the CPU; a Python-"
+        f"float divisor would bin {scalar_differ} of them otherwise on the "
+        f"card")
+
+
+def _fe_guard(gen) -> dict:
+    """Under cuDNN's global TF32 flag (set by the caller): how far an
+    unguarded ``F.conv2d`` lies from FP32 at the encoder's two convolutions
+    (random weights, 0/1 inputs as the spikes are) and at a wider one, and
+    how far ``encoder.conv_same`` (the guarded path) lies from FP32 there;
+    ``scale`` is the FP32 result's largest magnitude."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import encoder
+
+    def case(n, c_in, c_out, size):
+        x = (torch.rand((n, c_in, size, size), generator=gen) < 0.3
+             ).float().cuda()
+        w = (torch.randn((c_out, c_in, 3, 3), generator=gen)
+             / np.sqrt(9 * c_in)).cuda()
+        return x, w, F.pad(x, (0, 1, 0, 1))   # XLA's "SAME" at stride 2
+
+    out = {}
+    for name, shape in (("conv1", (512, 2, 16, 32)),
+                        ("conv2", (128, 16, 32, 16)),
+                        ("wide", FE_WIDE_CONV)):
+        x, w, xp = case(*shape)
+        flagged = F.conv2d(xp, w, stride=2)
+        with _fe_flag(False):
+            fp32 = F.conv2d(xp, w, stride=2)
+        out[name] = float((flagged - fp32).abs().max())
+    out["guarded"] = float((encoder.conv_same(x, w, 2) - fp32).abs().max())
+    out["scale"] = float(fp32.abs().max())
+    return out
+
+
+@contextlib.contextmanager
+def _fe_flag(tf32: bool):
+    """cuDNN's global TF32 flag set to ``tf32``, then put back."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def _fe_margins(enc, vols, cfg) -> torch.Tensor:
+    """Per proposal, the least |v - thresh| of any membrane potential at any
+    bin: ``encoder.encode_batch``'s steps (``conv_same``, ``spike``, the
+    soft reset) run again on ``vols``' device, float32 [N]."""
+    from repro_torch.core import encoder
+
+    N, T, H, W, _ = vols.shape
+    with torch.no_grad():
+        x = vols.permute(0, 1, 4, 2, 3).reshape(N * T, 2, H, W)
+        c1 = encoder.conv_same(x, enc.conv1, 2)
+        c1 = c1.reshape(N, T, *c1.shape[1:])
+        v1, v2 = torch.zeros_like(c1[:, 0]), 0.0
+        margin = torch.full((N,), float("inf"), device=vols.device)
+        for t in range(T):
+            v1 = cfg.tau * v1 + c1[:, t]
+            s1 = encoder.spike(v1 - cfg.thresh)
+            v2 = cfg.tau * v2 + encoder.conv_same(s1, enc.conv2, 2)
+            s2 = encoder.spike(v2 - cfg.thresh)
+            for v in (v1, v2):
+                near = torch.abs(v - cfg.thresh).flatten(1).amin(dim=1)
+                margin = torch.minimum(margin, near)
+            v1 = v1 - s1 * cfg.thresh
+            v2 = v2 - s2 * cfg.thresh
+    return margin
+
+
+def _fe_grads(enc, vols, img, bank, labels, cfg, tf32):
+    """The bridge loss and its gradients through the encoder."""
+    from repro_torch.core import bridge, encoder
+
+    with _fe_flag(tf32):
+        loss, _ = bridge.bridge_loss(img, encoder.encode_batch(enc, vols, cfg),
+                                     bank, labels)
+        params = dict(enc.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _fe_encoder_phase(report):
+    """(b) ``encode_batch`` over 128 proposals at ``EncoderConfig()`` (c1
+    16, c2 32, feat_dim 512) on volumes aggregated on the card, with
+    cuDNN's global TF32 flag set to True around every call (the encoder's
+    own guard must keep it FP32): z_e held to the CPU per proposal (rtol
+    and atol 1e-5; a proposal whose CPU potential came within 1e-4 of the
+    threshold at some bin may miss it, at most 1 %), the bridge loss's
+    gradients per tensor (on the proposals not excused), and ``query_hv``
+    with torr_edge's R (D = 8192) by the agreement rule, with its
+    ``sign_project`` launches counted."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.torr_edge import torr_edge
+    from repro_torch.core import bridge, encoder, events
+    from repro_torch.kernels import build, ref
+
+    cfg = encoder.EncoderConfig()
+    gen = torch.Generator().manual_seed(20)
+    enc_cpu = encoder.init_encoder(cfg, gen)
+    enc = copy.deepcopy(enc_cpu).to("cuda")
+    T, H, W = FE_WINDOW
+    evs = [_fe_events(7000 + i, FE_EVENTS, H, W).to("cuda")
+           for i in range(FE_PROPOSALS)]
+    vols = torch.stack([events.aggregate_window(e, FE_DT, T, H, W)
+                        for e in evs])
+    vols_cpu = torch.stack([events.aggregate_window(e.to("cpu"), FE_DT, T,
+                                                    H, W) for e in evs])
+    if not bits_equal(vols, vols_cpu):
+        raise AssertionError("encoder: the card's volumes != the CPU's")
+    margin = _fe_margins(enc_cpu, vols_cpu, cfg)
+    with torch.no_grad():
+        z_cpu = encoder.encode_batch(enc_cpu, vols_cpu, cfg)
+        with _fe_flag(True):
+            z = encoder.encode_batch(enc, vols, cfg)
+            enc_sp = spread(cuda_times(
+                lambda: encoder.encode_batch(enc, vols, cfg)))
+            enc_dev = device_ms(lambda: encoder.encode_batch(enc, vols, cfg))
+            guard = _fe_guard(gen)
+    ok = torch.isclose(z.cpu(), z_cpu, rtol=FE_TOL, atol=FE_TOL).all(dim=1)
+    missed = torch.nonzero(~ok).flatten()
+    if bool((margin[missed] >= FE_EXCUSE).any()) or \
+            missed.numel() > 0.01 * FE_PROPOSALS:
+        raise AssertionError(f"encoder: proposals {missed.tolist()} miss "
+                             f"the tolerance, margins "
+                             f"{margin[missed].tolist()}")
+    err = float((z.cpu() - z_cpu).abs().max())
+    log(f"[front end] (b) encode_batch {tuple(vols.shape)} -> "
+        f"{tuple(z.shape)} with cudnn.allow_tf32=True: {missed.numel()} "
+        f"proposals excused (margins {margin[missed].tolist()}), "
+        f"{int((margin < FE_EXCUSE).sum())} within {FE_EXCUSE} of the "
+        f"threshold, max |z_card - z_cpu| {err:.3e}; encode_batch from an "
+        f"idle stream (CUDA events) {fmt_spread(enc_sp)}, "
+        f"{enc_dev:.4f} ms on the device (captured); under the flag, "
+        f"|F.conv2d - FP32| {guard['conv1']:.3e} at conv1, "
+        f"{guard['conv2']:.3e} at conv2, {guard['wide']:.3e} at "
+        f"{FE_WIDE_CONV}; |conv_same - FP32| {guard['guarded']:.3e} there")
+    if guard["guarded"] > FE_TOL * guard["scale"]:
+        raise AssertionError(f"encoder: the FP32 guard let TF32 through "
+                             f"{guard}")
+
+    # the bridge loss's gradients, on the proposals not excused
+    keep = torch.nonzero(ok).flatten()
+    proxy = bridge.make_frozen_proxy(8, cfg.feat_dim, generator=gen)
+    labels = torch.randint(0, 8, (FE_PROPOSALS,), generator=gen)[keep]
+    img = proxy(F.one_hot(labels, 8).float())
+    bank = torch.randn((8, cfg.feat_dim), generator=gen)
+    l_cpu, g_cpu = _fe_grads(enc_cpu, vols_cpu[keep], img, bank, labels,
+                             cfg, False)
+    l_card, g_card = _fe_grads(enc, vols[keep.cuda()], img.cuda(),
+                               bank.cuda(), labels.cuda(), cfg, True)
+    rel = {k: float(torch.linalg.vector_norm(g_card[k].cpu() - g_cpu[k])
+                    / torch.linalg.vector_norm(g_cpu[k])) for k in g_cpu}
+    if any(not r <= FE_GRAD_TOL for r in rel.values()) or not math.isclose(
+            float(l_card), float(l_cpu), rel_tol=FE_TOL):
+        raise AssertionError(f"encoder: bridge gradients {rel}, loss "
+                             f"{float(l_card)} vs {float(l_cpu)}")
+    log(f"[front end] (b) bridge loss {float(l_card):.6f} (CPU "
+        f"{float(l_cpu):.6f}) over {keep.numel()} proposals; gradient "
+        f"||card - cpu|| / ||cpu|| " + ", ".join(
+            f"{k} {r:.2e}" for k, r in rel.items()))
+
+    # q = sign(R z_e) through the sign_project kernel
+    R = encoder.make_projection(torr_edge().D, cfg.feat_dim, gen)
+    R_card = R.cuda()
+    build.reset_launches()
+    q = encoder.query_hv(enc, vols, R_card, cfg)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    _require_launched("query_hv", launches, ("sign_project",))
+    rule = ref.sign_disagreement(z.cpu(), R, q.cpu(),
+                                 ref.sign_project_ref(z.cpu(), R))
+    if not rule["ok"] or rule["decided_differ"]:
+        raise AssertionError(f"query_hv breaks the agreement rule {rule}")
+    report["sign_project"].setdefault("front_end_launches", {})[
+        "query_hv"] = launches["sign_project"]
+    log(f"[front end] (b) query_hv {tuple(q.shape)} int8 (R {tuple(R.shape)}"
+        f"): decided_differ {rule['decided_differ']} undecided_differ "
+        f"{rule['undecided_differ']}; launches {launches}")
+    return dict(encode_batch_ms=enc_sp, encode_batch_device_ms=enc_dev,
+                excused=int(missed.numel()),
+                grad_rel=rel, tf32_flag=guard,
+                query_hv_launches=launches["sign_project"])
+
+
+def _fe_trainer_phase():
+    """(c) ``examples.train_bridge.main([])`` on the card: the reference's
+    defaults and its convergence assertion."""
+    from repro_torch.examples import train_bridge
+
+    t0 = time.perf_counter()
+    res = train_bridge.main([])
+    wall = time.perf_counter() - t0
+    step_sp = spread([1e3 * s for s in res["step_s"][1:]])
+    log(f"[front end] (c) train_bridge on {res['device']}: zero-shot "
+        f"accuracy {res['first']:.2f} -> {res['last']:.2f}, "
+        f"{res['s_per_step']:.4f} s/step mean; a step after the first "
+        f"(wall, host read included) {fmt_spread(step_sp)}; "
+        f"{len(res['accs'])} steps, {wall:.2f} s")
+    return dict(first=res["first"], last=res["last"],
+                s_per_step=res["s_per_step"], step_ms=step_sp)
+
+
+def _rr_hidden(rng):
+    """Hidden states that drift slowly and jump at ``RR_JUMPS``."""
+    h = rng.standard_normal((RR_BATCH, RR_D_MODEL))
+    out = []
+    for t in range(RR_STEPS):
+        h = (rng.standard_normal(h.shape) if t in RR_JUMPS
+             else h + 0.05 * rng.standard_normal(h.shape))
+        out.append(torch.from_numpy(h.astype(np.float32)))
+    return out
+
+
+def _fe_reranker_phase(report):
+    """(d) 32 decode steps of ``rerank_step`` at qwen3-14b's widths on the
+    card: each step's packed q held to the CPU's encode by the agreement
+    rule; the CPU's ``_rerank_from_packed`` fed the card's q equals the
+    card's rho, bypassed, state and scores bit for bit and its logits to
+    rtol 1e-5; both paths occur; ``sign_project_pack`` and
+    ``packed_hamming_batched`` launched once a step."""
+    from repro_torch.core.types import TorrConfig
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import fused_window as fw
+    from repro_torch.kernels.xnor_popcount_sim import packed_hamming_batched
+    from repro_torch.serving import reranker as rr
+
+    rcfg = TorrConfig(D=2048, B=8, M=min(RR_VOCAB, 256), K=8, N_max=RR_BATCH,
+                      feat_dim=RR_D_MODEL)
+    t0 = time.perf_counter()
+    params, im = rr.init_reranker(rcfg, RR_D_MODEL, RR_VOCAB, alpha=0.5,
+                                  generator=torch.Generator().manual_seed(7))
+    p_card, im_card = params.to("cuda"), im.to("cuda")
+    rng = np.random.default_rng(8)
+    hidden = _rr_hidden(rng)
+    logits = [torch.from_numpy(rng.standard_normal(
+        (RR_BATCH, RR_VOCAB)).astype(np.float32)) for _ in range(RR_STEPS)]
+    setup_s = time.perf_counter() - t0
+    h_card = [h.cuda() for h in hidden]
+    l_card = [x.cuda() for x in logits]
+
+    def run(steps):
+        st = rr.init_state(rcfg, RR_BATCH, "cuda")
+        outs = []
+        for t in steps:
+            lg, st, tel = rr.rerank_step(p_card, st, im_card, h_card[t],
+                                         l_card[t], rcfg)
+            outs.append((lg, st, tel))
+        return outs
+
+    run(range(2))                                   # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    outs = run(range(RR_STEPS))
+    torch.cuda.synchronize()
+    walls = [(time.perf_counter() - t0) * 1e3 / RR_STEPS]
+    launches = dict(build.LAUNCHES)
+    for _ in range(RR_LOOPS - 1):
+        t0 = time.perf_counter()
+        run(range(RR_STEPS))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / RR_STEPS)
+    wall_sp = spread(walls)
+    for name in ("sign_project_pack", "packed_hamming_batched"):
+        if launches[name] != RR_STEPS:
+            raise AssertionError(f"rerank: {name} launched "
+                                 f"{launches[name]} times in {RR_STEPS} "
+                                 "steps")
+        report[name].setdefault("front_end_launches", {})["rerank_step"] = \
+            launches[name]
+
+    st = rr.init_state(rcfg, RR_BATCH, "cpu")
+    undecided = 0
+    for t, (lg, st_card, tel) in enumerate(outs):
+        qp = st_card.prev_q.cpu()
+        rule = ref.sign_pack_disagreement(
+            hidden[t], params.R, qp,
+            ops.encode_packed(hidden[t], params.R, device="cpu"))
+        if not rule["ok"] or rule["decided_differ"]:
+            raise AssertionError(f"rerank step {t}: q breaks the agreement "
+                                 f"rule {rule}")
+        undecided += rule["undecided_differ"]
+        lg_cpu, st, tel_cpu = rr._rerank_from_packed(params, st, im, qp,
+                                                     logits[t], rcfg)
+        for what, a, b in (("rho", tel["rho"], tel_cpu["rho"]),
+                           ("bypassed", tel["bypassed"],
+                            tel_cpu["bypassed"]),
+                           ("prev_s", st_card.prev_s, st.prev_s),
+                           ("valid", st_card.valid, st.valid)):
+            if not bits_equal(a, b):
+                raise AssertionError(f"rerank step {t}: {what} != the CPU")
+        if not torch.allclose(lg.cpu(), lg_cpu, rtol=RR_LOGIT_RTOL,
+                              atol=1e-6):
+            raise AssertionError(f"rerank step {t}: logits != the CPU")
+    byp = torch.stack([o[2]["bypassed"] for o in outs]).cpu()
+    bypass_rate = float(byp.float().mean())
+    if not bool(byp.any()) or int((~byp[1:]).sum()) == 0:
+        raise AssertionError("rerank: no bypass or no full step after the "
+                             "first")
+
+    # one steady step's device time (captured, so the host's launches are
+    # not counted), and the two kernels at its shapes
+    st0 = outs[-1][1]
+    step_dev = device_ms(lambda: rr.rerank_step(p_card, st0, im_card,
+                                                h_card[-1], l_card[-1],
+                                                rcfg))
+    R32 = p_card.R
+    enc_ms = device_ms(lambda: fw.sign_project_pack(h_card[-1], R32))
+    enc_b = _encode_bounds(RR_BATCH, RR_D_MODEL, rcfg.D,
+                           RR_BATCH * rcfg.D // 8)[0]
+    qp = st0.prev_q
+    ham_ms = device_ms(lambda: packed_hamming_batched(qp, im_card.packed))
+    pairs = RR_BATCH * rcfg.M * rcfg.words
+    ham_b = bound(4 * (qp.numel() + im_card.packed.numel()
+                       + RR_BATCH * rcfg.M), pairs * 64 / PEAK_B1_S)
+    log(f"[front end] (d) rerank_step x {RR_STEPS} at d_model {RR_D_MODEL}, "
+        f"vocab {RR_VOCAB}, batch {RR_BATCH} (D {rcfg.D}, B {rcfg.B}, M "
+        f"{rcfg.M}): wall a step over the loop {fmt_spread(wall_sp)}, "
+        f"{step_dev:.4f} ms a step on the device (captured); bypass rate "
+        f"{bypass_rate:.4f} "
+        f"({int(byp.sum())} of {byp.numel()}); q undecided_differ "
+        f"{undecided}, rho/bypassed/state bit-equal to the CPU fed the "
+        f"card's q, logits within rtol {RR_LOGIT_RTOL}; launches {launches}; "
+        f"setup {setup_s:.2f} s")
+    log(f"[time] sign_project_pack(N={RR_BATCH},d={RR_D_MODEL},D={rcfg.D}): "
+        f"{enc_ms:.4f} ms on the device, bound {enc_b[0]:.4f} ms "
+        f"({enc_b[1]}); packed_hamming_batched(N={RR_BATCH},M={rcfg.M},"
+        f"W={rcfg.words}): {ham_ms:.4f} ms, bound {ham_b[0]:.4f} ms "
+        f"({ham_b[1]})")
+    return dict(ms_per_step=wall_sp, step_device_ms=step_dev,
+                bypass_rate=bypass_rate, launches={
+                    k: launches[k] for k in ("sign_project_pack",
+                                             "packed_hamming_batched")},
+                sign_project_pack_ms=enc_ms,
+                sign_project_pack_bound_ms=enc_b[0],
+                packed_hamming_batched_ms=ham_ms,
+                packed_hamming_batched_bound_ms=ham_b[0])
+
+
+def phase_front_end(report):
+    """Phase 14 (after 13, before 10): (a) events, (b) the encoder, (c) the
+    bridge trainer, (d) the reranker; see each step."""
+    _fe_events_phase()
+    row = {"encoder": _fe_encoder_phase(report)}
+    row["trainer"] = _fe_trainer_phase()
+    row["reranker"] = _fe_reranker_phase(report)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -2802,6 +3301,8 @@ def main() -> int:
     done("supervised recovery")
     gw_rows = phase_gateway(cfg, sys_, reuse, base_reuse[2])
     done("gateway")
+    fe_row = phase_front_end(report)
+    done("front end (events, encoder, bridge trainer, reranker)")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -2814,6 +3315,7 @@ def main() -> int:
     print(json.dumps({"async_vs_sync": async_rows}))
     print(json.dumps({"supervised": sup_rows}))
     print(json.dumps({"gateway": gw_rows}))
+    print(json.dumps({"front_end": fe_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.bridge import FrozenProxy
+from .core.encoder import Encoder
+from .core.events import EventBatch
 from .core.item_memory import ItemMemory, build_item_memory
 from .core.pipeline import TorrState
 from .core.query_cache import CacheState
 from .core.types import TorrConfig
+from .serving.reranker import RerankerParams, RerankerState
 
 CACHE_FIELDS = tuple(f.name for f in dataclasses.fields(CacheState))
 
@@ -83,13 +87,64 @@ def system_from_numpy(R, codes, task_w, *, cfg: TorrConfig, graph=None):
                       task_w=np.asarray(task_w, np.float32), graph=graph)
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def event_batch_from_numpy(x, y, t, p, count) -> EventBatch:
+    """A padded event window from its five leaves."""
+    def i32(a):
+        return torch.from_numpy(np.array(a, np.int32))
+
+    return EventBatch(x=i32(x), y=i32(y), t=_f32(t), p=i32(p),
+                      count=i32(count))
+
+
+def encoder_from_numpy(conv1, conv2, head, head_b) -> Encoder:
+    """The encoder from ``repro``'s weights (convolutions HWIO -> OIHW)."""
+    return Encoder(conv1=_f32(conv1).permute(3, 2, 0, 1).contiguous(),
+                   conv2=_f32(conv2).permute(3, 2, 0, 1).contiguous(),
+                   head=_f32(head), head_b=_f32(head_b))
+
+
+def encoder_to_numpy(tensors) -> dict:
+    """The inverse of :func:`encoder_from_numpy` for a mapping of the
+    encoder's four tensors (its parameters, their gradients): numpy in
+    ``repro``'s layout (convolutions OIHW -> HWIO)."""
+    out = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    for k in ("conv1", "conv2"):
+        out[k] = np.ascontiguousarray(out[k].transpose(2, 3, 1, 0))
+    return out
+
+
+def frozen_proxy_from_numpy(w1, w2) -> FrozenProxy:
+    return FrozenProxy(w1=_f32(w1), w2=_f32(w2))
+
+
+def reranker_params_from_numpy(R, task_w, concept_map,
+                               alpha) -> RerankerParams:
+    """Reranker parameters; ``concept_map`` [M, V] or None (identity)."""
+    return RerankerParams(
+        R=_f32(R), task_w=_f32(task_w),
+        concept_map=None if concept_map is None else _f32(concept_map),
+        alpha=_f32(alpha))
+
+
+def reranker_state_from_numpy(prev_q, prev_s, valid) -> RerankerState:
+    """Reranker state; ``prev_q``'s uint32 words become int32 bit
+    patterns."""
+    return RerankerState(
+        prev_q=words_from_numpy(prev_q), prev_s=_f32(prev_s),
+        valid=torch.from_numpy(np.array(valid, bool)))
+
+
 def to_numpy(x, *, words: bool = False):
     """Tensor -> numpy (uint32 view when ``words``); a dataclass of tensors
     -> a dict of numpy arrays, packed-word leaves as uint32."""
     if dataclasses.is_dataclass(x):
         return {f.name: to_numpy(getattr(x, f.name),
                                  words=f.name in ("packed", "pmajor",
-                                                  "q_packed"))
+                                                  "q_packed", "prev_q"))
                 for f in dataclasses.fields(x)}
     a = x.detach().cpu().numpy()
     return a.view(np.uint32) if words else a

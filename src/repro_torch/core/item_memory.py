@@ -121,6 +121,14 @@ def build_item_memory(bipolar: torch.Tensor, plane_total: int = 4) -> ItemMemory
     )
 
 
+def random_item_memory(generator: torch.Generator | None,
+                       cfg: TorrConfig) -> ItemMemory:
+    """Random concept codes (the classic HDC item memory), drawn on the
+    CPU (torch's stream, not ``jax.random``'s)."""
+    return build_item_memory(hdc.random_hv(generator, (cfg.M, cfg.D)),
+                             plane_total=cfg.bit_planes)
+
+
 def item_memory_from_prototypes(feats: torch.Tensor, R: torch.Tensor,
                                 tie: torch.Tensor | None = None,
                                 plane_total: int = 4) -> ItemMemory:
