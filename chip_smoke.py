@@ -172,15 +172,41 @@ bit:
      taken, ``sign_project_pack`` and ``packed_hamming_batched`` launched
      once a step; ms per step, the bypass rate and both kernels timed at
      the step's shapes.
+ 15. LM serving (run after 14, before 10; TF32 and PyTorch's bf16/fp16
+     reduced-precision GEMM reductions off, then restored): (a)
+     ``launch.serve.run_lm`` at qwen3-14b's full config (40 layers,
+     d_model 5120, GQA 40/8, vocab 151936, bf16 weights drawn on the
+     card), batch 4, a 128-token prompt, 32 tokens with the reranker, the
+     decode step replayed from a CUDA graph; the same tokens replayed
+     eagerly, every step's logits and hidden state and the final cache
+     bit-equal to the captured run's; ``sign_project_pack`` and
+     ``packed_hamming_batched`` launched once a reranked step (31); prefill
+     ms, decode ms/token (captured, and the step alone captured and eager),
+     tok/s, bypass rate, peak ``memory_allocated``, the cache's copy in and
+     out; (b) full widths at reduced depth in float32 (qwen3-14b and
+     musicgen-large at 2 layers, llama-3.2-vision-90b at 5: one group with
+     its cross layer, deepseek-v2-236b at 2: its dense layer and one MoE
+     layer, capacity factor 8 so no choice drops): decode after prefill
+     equals prefill of the longer prompt within 2e-2 (MLA: 2e-2 of the
+     logits' scale); (c) the four families' smoke configs in float32, the
+     card's prefill and 4 decode steps against the port's CPU run, with
+     the score products in float32 within 1e-3 and as the model computes
+     them (bfloat16) within 1e-3 widened to 2^-8 of each tensor's scale,
+     and the same steps replayed from a CUDA graph bit-equal to eager; (d) ``python -m repro_torch.launch.serve --arch musicgen-large
+     --batch 2 --prompt-len 16 --gen 8`` in a subprocess at the full
+     config prints ``generated shape (2, 8, 4)``. In (b) and (c) every
+     vector leaf (norm offsets, the VLM gate: zero at init) is drawn. The
+     weights are freed before phase 10.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
 capture recorded (``GraphFamily``), so the counts keep their meaning.
 Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
 rows (captured and eager ms/step, windows/s, idle share), the async vs
-sync rows, the supervised, gateway and front-end rows and the per-kernel
-report (with each kernel's ``front_end_launches`` from phase 14) are
-printed as JSON before the last line, which is
+sync rows, the supervised, gateway, front-end and LM rows and the
+per-kernel report (with each kernel's ``front_end_launches`` from phase 14
+and ``lm_launches`` from phase 15) are printed as JSON before the last
+line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -316,6 +342,8 @@ def bits_equal(a, b) -> bool:
     a, b = (torch.as_tensor(x).detach().cpu() for x in (a, b))
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == b.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and torch.equal(a, b)
 
 
@@ -3190,6 +3218,373 @@ def phase_front_end(report):
     return row
 
 
+# phase 15: qwen3-14b at its full config (src/repro/configs/registry.py:68)
+# served as the launcher serves it (src/repro/launch/serve.py:882-944)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-14b", 4, 128, 32
+# (b): full widths, depth cut to these layers (the VLM: one group, four self
+# layers and its cross layer; deepseek-v2: its dense layer and one MoE layer)
+LM_DEPTHS = (("qwen3-14b", 2), ("musicgen-large", 2),
+             ("llama-3.2-vision-90b", 5), ("deepseek-v2-236b", 2))
+LM_CONT_TOL = 2e-2          # (b): tests/test_models.py's rule
+LM_SMOKE_TOL = 1e-3         # (c): tests/test_torch_lm.py's float32 rule
+LM_SMOKE_STEPS = 4
+
+
+@contextlib.contextmanager
+def _lm_flags():
+    """GEMMs in float32 without TF32 and without reduced-precision
+    reductions in bfloat16 and float16 (PyTorch enables those by default),
+    then the flags as they were."""
+    m = torch.backends.cuda.matmul
+    names = ("allow_tf32", "allow_bf16_reduced_precision_reduction",
+             "allow_fp16_reduced_precision_reduction")
+    was = {n: getattr(m, n) for n in names}
+    for n in names:
+        setattr(m, n, False)
+    try:
+        yield "TF32 off, bf16/fp16 reduced-precision reduction off"
+    finally:
+        for n, v in was.items():
+            setattr(m, n, v)
+
+
+def _lm_offsets(params, gen):
+    """Every vector leaf (the norm offsets and the VLM's gate, zero at
+    init) drawn N(0, 0.3^2), so the norms' scales and the cross layer
+    count (tanh(0) = 0 would hide the cross layer)."""
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen,
+                                          device=p.device).to(p))
+
+
+def _lm_leaves(tree):
+    """The tensors of a decode cache (its keys in order) or of a tuple."""
+    from repro_torch.core.capture import leaves
+
+    if isinstance(tree, dict):
+        tree = tuple(tree[k] for k in sorted(tree))
+    return leaves(tree)
+
+
+def _lm_serving(report, flags):
+    """(a) ``run_lm`` at qwen3-14b's full config with the reranker and the
+    captured decode step, then the same tokens replayed eagerly: every
+    step's logits and hidden state and the final cache bit-equal; both
+    reranker kernels launched once a reranked step."""
+    import gc
+
+    from repro_torch.core import capture
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    res = serve.run_lm(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                       gen=LM_GEN, rerank=True, record=True)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reranked = LM_GEN - 1
+    for name in ("sign_project_pack", "packed_hamming_batched"):
+        if launches[name] != reranked or res["launches"][name] != reranked:
+            raise AssertionError(f"lm: {name} launched {launches[name]} "
+                                 f"times ({res['launches'][name]} after the "
+                                 f"warm-up) in {reranked} reranked steps")
+        report[name]["lm_launches"] = {"run_lm": launches[name]}
+    cfg, params, fam = res["cfg"], res["params"], res["graphs"]
+    if not isinstance(fam, capture.GraphFamily) or len(fam) != 1 or \
+            fam.replays != LM_GEN:
+        raise AssertionError("lm: the decode step was not replayed from "
+                             "one graph every step")
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 1e9
+
+    # the same tokens, eagerly; then the captured step alone on them
+    s_max = LM_PROMPT + 64
+    toks = torch.from_numpy(res["tokens"]).cuda()
+    cache, _ = tf.prefill(params, res["prompt"], cfg, s_max=s_max)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_GEN):
+        cache, lg, h = tf.decode_step(params, cache, toks[:, t], cfg,
+                                      return_hidden=True)
+        outs.append((lg, h))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    for t, ((lg, h), (lg_c, h_c)) in enumerate(zip(outs, res["steps"])):
+        if not (bits_equal(lg, lg_c) and bits_equal(h, h_c)):
+            raise AssertionError(f"lm: eager step {t} != the captured step")
+    for a, b in zip(_lm_leaves(cache), _lm_leaves(res["cache"])):
+        if not bits_equal(a, b):
+            raise AssertionError("lm: the eager cache != the captured one")
+    key = (serve.LM_DECODE, cfg, LM_BATCH, s_max)
+    names = tuple(res["cache"])
+    step = serve._decode_segment(params, cfg, names)
+    leaves = tuple(res["cache"][n] for n in names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_GEN):
+        leaves, _, _ = fam.run(key, step, (leaves, toks[:, t]))
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    cache_leaves = _lm_leaves(leaves)
+    cache_mb = sum(x.numel() * x.element_size() for x in cache_leaves) / 1e6
+    copy_ms = device_ms(lambda: [x.clone() for x in cache_leaves], calls=5)
+    bound_ms = weight_gb * 1e9 / PEAK_BYTES_S * 1e3
+    log(f"[lm] (a) {cfg.name} full config ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}): {n_params / 1e9:.2f}B parameters, "
+        f"{weight_gb:.2f} GB of weights drawn on the card; batch "
+        f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens, reranked; "
+        f"{flags}")
+    log(f"[lm] (a) recording every step's outputs: prefill "
+        f"{res['prefill_ms']:.2f} ms (the first call); decode "
+        f"{res['decode_ms_per_token']:.3f} ms/token; first step (capture) "
+        f"{res['first_step_ms']:.1f} ms; bypass rate "
+        f"{res['bypass_rate']:.4f}; peak memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[lm] (a) decode step alone on the same tokens: captured (copy in, "
+        f"replay, clone out) {replay_ms:.3f} ms/token, eager "
+        f"{eager_ms:.3f} ms/token; weights read once {bound_ms:.3f} ms at "
+        f"{PEAK_BYTES_S / 1e12:.2f} TB/s; the cache {cache_mb:.1f} MB, one "
+        f"copy of it {copy_ms:.4f} ms on the device (two a replay); eager "
+        f"== captured bit for bit in {LM_GEN} steps' logits and hidden "
+        f"states and the final cache; launches {launches}")
+    row = dict(arch=cfg.name, n_params=n_params, weight_gb=weight_gb,
+               recorded=dict(prefill_ms=res["prefill_ms"],
+                             decode_ms_per_token=res["decode_ms_per_token"],
+                             first_step_ms=res["first_step_ms"]),
+               bypass_rate=res["bypass_rate"], peak_gib=peak / 2**30,
+               replay_ms=replay_ms, eager_ms=eager_ms,
+               weights_bound_ms=bound_ms, cache_mb=cache_mb,
+               cache_copy_ms=copy_ms, launches={
+                   k: launches[k] for k in ("sign_project_pack",
+                                            "packed_hamming_batched")})
+    del res, params, fam, cache, outs, leaves, cache_leaves, step
+    # the launcher's run as a user makes it (nothing recorded), with and
+    # without the reranker: what the reranker's step costs
+    for rerank in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = serve.run_lm(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                           gen=LM_GEN, rerank=rerank)
+        label = "reranked" if rerank else "not reranked"
+        row[label] = {k: run[k] for k in ("prefill_ms", "first_step_ms",
+                                          "decode_ms_per_token", "tok_s")}
+        log(f"[lm] (a) {label}: prefill {run['prefill_ms']:.2f} ms; decode "
+            f"(captured, with sampling) {run['decode_ms_per_token']:.3f} "
+            f"ms/token, {run['tok_s']:.1f} tok/s; first step (capture) "
+            f"{run['first_step_ms']:.1f} ms")
+        del run
+    return row
+
+
+def _lm_prompt(cfg, B, S, seed, device):
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.n_codebooks) if cfg.family == "audio" else (B, S)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, shape).astype(np.int32)).to(device)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32)
+        ).to(device)
+    return batch
+
+
+def _lm_continuation():
+    """(b) Full widths at reduced depth, float32: prefill(t[:16]) then
+    decode(t[16]) equals prefill(t[:17]) within 2e-2."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tf
+
+    rows = []
+    for name, depth in LM_DEPTHS:
+        # deepseek-v2: a capacity no run drops from (prefill's capacity and
+        # token order change with the prompt's length)
+        over = dict(capacity_factor=8.0) if name.startswith("deepseek") \
+            else {}
+        cfg = dataclasses.replace(get(name), n_layers=depth, dtype="float32",
+                                  **over)
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator("cuda").manual_seed(2),
+                                "cuda")
+        _lm_offsets(params, torch.Generator("cuda").manual_seed(3))
+        batch = _lm_prompt(cfg, 2, 17, 4, "cuda")
+        short = {k: (v[:, :16] if k == "tokens" else v)
+                 for k, v in batch.items()}
+        cache, _ = tf.prefill(params, short, cfg)
+        _, dec = tf.decode_step(params, cache, batch["tokens"][:, 16], cfg)
+        _, full = tf.prefill(params, batch, cfg)
+        err = float((dec - full).abs().max())
+        # MLA: 2e-2 of the logits' scale (its absorbed decode and its
+        # prefill round one score to bfloat16 in two ways; tests/
+        # test_torch_lm.py::test_decode_matches_prefill_continuation)
+        atol = LM_CONT_TOL * (float(full.abs().max())
+                              if cfg.attn_kind == "mla" else 1.0)
+        ok = torch.allclose(dec, full, rtol=LM_CONT_TOL, atol=atol)
+        secs = time.perf_counter() - t0
+        extra = ", capacity_factor 8" if over else ""
+        log(f"[lm] (b) {name} at {depth} of {get(name).n_layers} layers, "
+            f"d_model {cfg.d_model}, float32{extra}: decode after prefill "
+            f"vs prefill of the longer prompt, max |diff| {err:.3e} (rule "
+            f"rtol {LM_CONT_TOL}, atol {atol:.3e}); {secs:.1f} s")
+        if not ok:
+            raise AssertionError(f"lm: {name} decode != prefill "
+                                 f"continuation ({err})")
+        rows.append(dict(arch=name, layers=depth, max_abs_diff=err,
+                         atol=atol))
+        del params, cache
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _lm_scores(dtype):
+    """The score products' operand type in ``models/attention.py`` and
+    ``models/mla.py`` (bfloat16, as the reference rounds q and k) set to
+    ``dtype``, then put back."""
+    from repro_torch.models import attention, mla
+
+    was = attention.BF16, mla.BF16
+    attention.BF16 = mla.BF16 = dtype
+    try:
+        yield
+    finally:
+        attention.BF16, mla.BF16 = was
+
+
+def _lm_card_vs_cpu():
+    """(c) Smoke configs of the four families in float32, every vector
+    leaf drawn: the card's prefill and 4 teacher-forced decode steps (logits,
+    hidden, cache) against the port's CPU run. With the score products in
+    float32 at the CPU tests' 1e-3; as the model computes them (q and k
+    rounded to bfloat16, a bfloat16 product) at 1e-3 widened to one
+    bfloat16 ulp of each tensor's scale (2^-8 max|cpu|): where the card's
+    and the CPU's float32 sums round to two bfloat16 values a score moves by
+    an ulp."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        with _lm_scores(dtype):
+            rows += _lm_card_vs_cpu_at(dtype)
+    return rows
+
+
+def _lm_card_vs_cpu_at(score_dtype):
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import capture
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    rows = []
+    scores = str(score_dtype).removeprefix("torch.")
+    for name, _ in LM_DEPTHS:
+        cfg = dataclasses.replace(get_smoke(name), dtype="float32")
+        cpu = tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+        _lm_offsets(cpu, torch.Generator().manual_seed(6))
+        card = copy.deepcopy(cpu).to("cuda")
+        batch = _lm_prompt(cfg, 2, 16 + LM_SMOKE_STEPS, 7, "cpu")
+        short = {k: (v[:, :16] if k == "tokens" else v)
+                 for k, v in batch.items()}
+        c_cpu, l_cpu = tf.prefill(cpu, short, cfg)
+        c_card, l_card = tf.prefill(card, {k: v.cuda()
+                                           for k, v in short.items()}, cfg)
+        # the same steps replayed from a CUDA graph, as run_lm decodes
+        names = tuple(c_card)
+        step = serve._decode_segment(card, cfg, names)
+        fam = capture.GraphFamily()
+        graphed = tuple(capture.tree_map(torch.clone, c_card[n])
+                        for n in names)
+        pairs = [("prefill logits", l_card, l_cpu)]
+        for t in range(LM_SMOKE_STEPS):
+            tok = batch["tokens"][:, 16 + t]
+            c_cpu, lc, hc = tf.decode_step(cpu, c_cpu, tok, cfg,
+                                           return_hidden=True)
+            c_card, lg, hg = tf.decode_step(card, c_card, tok.cuda(), cfg,
+                                            return_hidden=True)
+            graphed, lgg, hgg = fam.run((serve.LM_DECODE, cfg, 2, 16 + 64),
+                                        step, (graphed, tok.cuda()))
+            if not (bits_equal(lgg, lg) and bits_equal(hgg, hg)):
+                raise AssertionError(f"lm: {name} smoke ({scores} scores) "
+                                     f"step {t}: captured != eager")
+            pairs += [(f"step {t} logits", lg, lc), (f"step {t} hidden", hg,
+                                                     hc)]
+        if not all(bits_equal(a, b) for a, b in zip(
+                _lm_leaves(graphed), _lm_leaves(tuple(c_card[n]
+                                                      for n in names)))):
+            raise AssertionError(f"lm: {name} smoke: the captured cache != "
+                                 "the eager one")
+        pairs += [(f"cache {i}", a, b) for i, (a, b) in enumerate(zip(
+            _lm_leaves(c_card), _lm_leaves(c_cpu)))]
+        err = 0.0
+        for what, a, b in pairs:
+            a, b = a.cpu().float(), b.float()
+            err = max(err, float((a - b).abs().max()))
+            atol = LM_SMOKE_TOL
+            if score_dtype == torch.bfloat16:
+                atol = max(atol, 2.0 ** -8 * float(b.abs().max()))
+            if not torch.allclose(a, b, rtol=LM_SMOKE_TOL, atol=atol):
+                raise AssertionError(f"lm: {name} smoke ({scores} scores) "
+                                     f"{what} card != cpu")
+        rule = (f"{LM_SMOKE_TOL}" if score_dtype == torch.float32 else
+                f"{LM_SMOKE_TOL}, widened to 2^-8 of each tensor's scale")
+        log(f"[lm] (c) {name} smoke, float32, {scores} scores: prefill and "
+            f"{LM_SMOKE_STEPS} decode steps on the card == the CPU within "
+            f"{rule} (max |diff| {err:.3e} over logits, hidden and cache); "
+            f"the steps replayed from a CUDA graph == eager bit for bit")
+        rows.append(dict(arch=name, scores=scores, max_abs_diff=err))
+    return rows
+
+
+def _lm_cli():
+    """(d) The launcher as a user runs it, in a subprocess, at
+    musicgen-large's full config."""
+    import os
+    import subprocess
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "musicgen-large", "--batch", "2", "--prompt-len", "16", "--gen",
+           "8"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(
+                             ROOT / "src")))
+    secs = time.perf_counter() - t0
+    if out.returncode != 0 or "generated shape (2, 8, 4)" not in out.stdout:
+        raise AssertionError(f"lm: the launcher failed ({out.returncode}): "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    for line in out.stdout.splitlines():
+        if line.startswith("[serve]"):
+            log(f"[lm] (d) {line}")
+    log(f"[lm] (d) python -m repro_torch.launch.serve --arch musicgen-large "
+        f"--batch 2 --prompt-len 16 --gen 8: exit 0, {secs:.1f} s")
+    return dict(seconds=secs)
+
+
+def phase_lm(report):
+    """Phase 15 (after 14, before 10): (a) qwen3-14b at its full config
+    served with the reranker, captured == eager; (b) full widths at reduced
+    depth, decode == prefill continuation; (c) the four families' smoke
+    configs, card == CPU; (d) the CLI at musicgen-large's full config. The
+    weights are freed before phase 10."""
+    import gc
+
+    with _lm_flags() as flags:
+        row = {"flags": flags, "serve": _lm_serving(report, flags)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["continuation"] = _lm_continuation()
+        row["card_vs_cpu"] = _lm_card_vs_cpu()
+    row["cli"] = _lm_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -3303,6 +3698,8 @@ def main() -> int:
     done("gateway")
     fe_row = phase_front_end(report)
     done("front end (events, encoder, bridge trainer, reranker)")
+    lm_row = phase_lm(report)
+    done("LM serving")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -3316,6 +3713,7 @@ def main() -> int:
     print(json.dumps({"supervised": sup_rows}))
     print(json.dumps({"gateway": gw_rows}))
     print(json.dumps({"front_end": fe_row}))
+    print(json.dumps({"lm_serving": lm_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

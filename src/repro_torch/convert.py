@@ -138,6 +138,122 @@ def reranker_state_from_numpy(prev_q, prev_s, valid) -> RerankerState:
         valid=torch.from_numpy(np.array(valid, bool)))
 
 
+# ---------------------------------------------------------------------------
+# The LM (models/): the reference's parameter pytree stacks each pattern
+# position's layers along a group axis; the port keeps a module a layer
+# ---------------------------------------------------------------------------
+
+def _lm_path(name: str) -> tuple[tuple, int | None]:
+    """A port parameter's name -> (the reference's path, the index along
+    the stacked axis, or None for an unstacked leaf)."""
+    parts = name.split(".")
+    if parts[0] == "groups":                # groups.<g>.<kind>_<i>.<rest>
+        return ("groups", *parts[2:]), int(parts[1])
+    if parts[0] == "dense_prefix":          # dense_prefix.<j>.<rest>
+        return ("dense_prefix", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _np_float(t: torch.Tensor) -> np.ndarray:
+    """A float tensor as numpy, bfloat16 widened to float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _lm_tree(params, leaf) -> dict:
+    """The port's parameters in the reference's nested layout, each leaf
+    ``leaf(tensors, stacked)`` of its layers' tensors in layer order."""
+    layers: dict = {}
+    for name, t in params.named_parameters():
+        path, idx = _lm_path(name)
+        layers.setdefault(path, (idx is not None, []))[1].append(t)
+    out: dict = {}
+    for path, (stacked, ts) in layers.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(ts, stacked)
+    return out
+
+
+def lm_params_from_numpy(cfg, tree: dict):
+    """The reference's LM parameter pytree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's
+    ``transformer`` parameters on the CPU: the group axis split into
+    layers, each leaf cast to the port's dtype for it (bfloat16 arrays
+    arrive exactly through float32)."""
+    from .models import transformer as tf
+
+    params = tf.init_params(cfg, device="meta").to_empty(device="cpu")
+    with torch.no_grad():
+        for name, param in params.named_parameters():
+            path, idx = _lm_path(name)
+            node = tree
+            for key in path:
+                node = node[key]
+            a = np.asarray(node if idx is None else node[idx], np.float32)
+            if a.shape != tuple(param.shape):
+                raise ValueError(f"{'/'.join(path)}: {a.shape}, the port's "
+                                 f"{tuple(param.shape)}")
+            param.copy_(torch.from_numpy(a))
+    return params
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's nested
+    layout with the layers stacked along the group axis (bfloat16 leaves
+    as float32)."""
+    return _lm_tree(params, lambda ts, stacked: np.stack(
+        [_np_float(t) for t in ts]) if stacked else _np_float(ts[0]))
+
+
+def lm_param_specs(params) -> dict:
+    """{reference path "a/b/c": (shape, dtype name)} of the port's
+    parameters in the reference's stacked layout, read from shapes alone
+    (so a model on ``meta`` gives it without allocating)."""
+    tree = _lm_tree(params, lambda ts, stacked: (
+        ((len(ts),) if stacked else ()) + tuple(ts[0].shape),
+        str(ts[0].dtype).removeprefix("torch.")))
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = v
+
+    walk(tree, ())
+    return flat
+
+
+def lm_cache_from_numpy(cfg, cache: dict) -> dict:
+    """The reference's decode cache (a dict of numpy arrays and tuples of
+    them) -> the port's on the CPU: float leaves in the config's dtype,
+    ``pos`` an int32 scalar tensor."""
+    from .models.transformer import _dtype
+
+    dt = _dtype(cfg)
+
+    def leaf(a):
+        if isinstance(a, tuple):
+            return tuple(leaf(x) for x in a)
+        return torch.from_numpy(np.array(a, np.float32)).to(dt)
+
+    return {k: (torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+                if k == "pos" else leaf(v)) for k, v in cache.items()}
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's decode cache as numpy, in the reference's layout
+    (bfloat16 leaves as float32)."""
+    def leaf(t):
+        return tuple(leaf(x) for x in t) if isinstance(t, tuple) \
+            else _np_float(t)
+
+    return {k: leaf(v) for k, v in cache.items()}
+
+
 def to_numpy(x, *, words: bool = False):
     """Tensor -> numpy (uint32 view when ``words``); a dataclass of tensors
     -> a dict of numpy arrays, packed-word leaves as uint32."""

@@ -1,7 +1,14 @@
-"""Serving launcher: the multi-stream TorR window engine (port of the
-``--torr-*`` path of ``repro.launch.serve``).
+"""Serving launcher: batched LM prefill + decode with the optional TorR
+reranker, and the multi-stream TorR window engine (port of
+``repro.launch.serve``).
 
 Examples:
+    # an LM (the registry's architectures; random weights from a seed)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --rerank
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        musicgen-large --smoke --batch 2 --prompt-len 16 --gen 8 \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --torr-streams 8 \\
         --torr-frames 30
     # async dispatch/collect runtime with RT-60 deadline admission control
@@ -89,9 +96,29 @@ post packed windows over HTTP/1.1. ``--gateway-host/-rate/-burst/
 engine through ``SyncDriver``. SIGINT/SIGTERM drains: stop accepting,
 finish in-flight requests, write the artifacts, exit 0.
 
+LM serving (``--arch``, when neither ``--torr-streams`` nor
+``--gateway-port`` is given)
+==========================================================================
+
+``run_lm`` draws the architecture's weights (``--smoke``: its reduced
+config) and a prompt of ``--batch`` x ``--prompt-len`` tokens from fixed
+seeds, runs ``models.transformer.prefill`` and then ``--gen`` decode steps,
+each sampling the next token by Gumbel-max at ``--temperature`` from a
+seeded generator on the run's device (``jax.random.categorical`` cannot be
+reproduced in torch). ``--rerank`` folds the TorR HDC reranker
+(``serving.reranker.rerank_step``: the ``sign_project_pack`` and
+``packed_hamming_batched`` kernels on the card) into every decode step's
+logits from the previous step's hidden state, at ``TorrConfig(D=2048,
+B=8, M=min(vocab, 256), K=8, N_max=batch, feat_dim=d_model)``; audio
+models skip it, as the reference does. On the card the decode step is
+replayed from a CUDA graph (``core.capture.GraphFamily``, keyed by the
+config, the batch and the cache length), captured at the first step: the
+counterpart of the reference's ``jax.jit``. Each replay copies the cache
+into the graph's buffers and clones it out. The recurrent families and
+``serve_quant="int8"`` are not ported yet (ROADMAP Queue 1).
+
 One card: ``--mesh`` takes 0 or 1 (``repro`` shards the stream slots over
-more devices; the port serves one). Not offered yet: the LM serving path
-(``--arch`` and its options), which comes with the LM framework.
+more devices; the port serves one).
 """
 from __future__ import annotations
 
@@ -709,10 +736,171 @@ def _write_output(f, sid, seq, wout) -> None:
     os.fsync(f.fileno())
 
 
+LM_DECODE = "lm_decode"      # the decode step's graph key
+
+
+def _decode_segment(params, cfg, names):
+    """The decode step as a function of tensors alone (the cache's leaves
+    in ``names`` order, the tokens), for the graph family: it returns the
+    leaves it updated in place, the logits and the hidden state."""
+    from ..models import transformer as tf
+
+    def step(leaves, tokens):
+        cache, logits, hidden = tf.decode_step(
+            params, dict(zip(names, leaves)), tokens, cfg,
+            return_hidden=True)
+        return tuple(cache[n] for n in names), logits, hidden
+
+    return step
+
+
+def sample(logits: torch.Tensor, temperature: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """Gumbel-max: argmax(logits / temperature + g), g = -log(-log(u)) for
+    uniforms u drawn from ``generator`` on the logits' device."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits / temperature - torch.log(-torch.log(u)),
+                        dim=-1)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_lm(arch: str = "musicgen-large", smoke: bool = False,
+           batch: int = 4, prompt_len: int = 32, gen: int = 32,
+           rerank: bool = False, temperature: float = 0.8, device=None,
+           jit: bool = True, record: bool = False) -> dict:
+    """Batched prefill + ``gen`` decode steps of the registry's ``arch``
+    with the optional reranker; prints the reference's ``[serve]`` lines
+    and returns the results.
+
+    The step after the first is timed: the first (``first_step_ms``)
+    captures the decode graph on the card. ``launches`` counts the hand-
+    written kernels from the second step to the end. ``record`` keeps each
+    step's decode logits and hidden state (``steps``) for replays."""
+    from ..configs import get, get_smoke
+    from ..core import capture
+    from ..device import resolve_device
+    from ..kernels import build
+    from ..models import transformer as tf
+    from ..serving import reranker as rr
+
+    dev = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get(arch)
+    params = tf.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    B, S = batch, prompt_len
+    rng = np.random.default_rng(0)
+    shape = (B, S, cfg.n_codebooks) if cfg.family == "audio" else (B, S)
+    prompt = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, shape).astype(np.int32)).to(dev)}
+    if cfg.family == "vlm":
+        prompt["vision"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32)
+        ).to(dev, torch.bfloat16)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    s_max = S + 64            # prefill's default: room for 64 tokens
+    cache, logits = tf.prefill(params, prompt, cfg, s_max=s_max)
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    reranking = rerank and cfg.family != "audio"
+    if reranking:
+        rcfg = TorrConfig(D=2048, B=8, M=min(cfg.vocab, 256), K=8,
+                          N_max=B, feat_dim=cfg.d_model)
+        rparams, rim = rr.init_reranker(
+            rcfg, cfg.d_model, cfg.vocab, alpha=0.5,
+            generator=torch.Generator().manual_seed(7))
+        rparams, rim = rparams.to(dev), rim.to(dev)
+        rstate = rr.init_state(rcfg, B, dev)
+
+    graphs = (capture.GraphFamily() if jit and dev.type == "cuda"
+              else capture.EAGER)
+    names = tuple(cache)
+    step = _decode_segment(params, cfg, names)
+    key = (LM_DECODE, cfg, B, s_max)
+    sampler = torch.Generator(dev).manual_seed(1)
+    generated, bypassed, steps = [], [], []
+    hidden = None
+    t0 = time.perf_counter()
+    for i in range(gen):
+        if i == 1:
+            _sync(dev)
+            t1 = time.perf_counter()
+            before = dict(build.LAUNCHES)
+        if reranking and hidden is not None:
+            logits, rstate, tel = rr.rerank_step(rparams, rstate, rim,
+                                                 hidden, logits, rcfg)
+            bypassed.append(tel["bypassed"])
+        nxt = sample(logits, temperature, sampler)
+        generated.append(nxt)
+        leaves, logits, hidden = graphs.run(
+            key, step, (tuple(cache[n] for n in names), nxt))
+        cache = dict(zip(names, leaves))
+        if record:
+            steps.append((logits, hidden))
+    _sync(dev)
+    t_end = time.perf_counter()
+    first_ms = ((t1 if gen > 1 else t_end) - t0) * 1e3
+    steady = gen - 1
+    decode_ms = (t_end - t1) * 1e3 / steady if steady else float("nan")
+    launches = ({k: n - before[k] for k, n in build.LAUNCHES.items()}
+                if steady else {k: 0 for k in build.LAUNCHES})
+    bypass_rate = (float(torch.stack(bypassed).float().mean())
+                   if bypassed else None)
+    out = torch.stack(generated, dim=1).cpu().numpy()
+
+    print(f"[serve] arch={cfg.name} batch={B} prompt={S} gen={gen} "
+          f"device={dev.type}")
+    mode = "eager" if graphs is capture.EAGER else "captured"
+    print(f"[serve] prefill {prefill_ms:.1f} ms; decode {decode_ms:.1f} "
+          f"ms/token ({B * 1e3 / decode_ms:.1f} tok/s, {mode}); first step "
+          f"{first_ms:.1f} ms")
+    if bypass_rate is not None:
+        print(f"[serve] reranker bypass rate: {bypass_rate:.2f}")
+    print(f"[serve] generated shape {out.shape}, sample: "
+          f"{out[0].ravel()[:16]}")
+    return dict(cfg=cfg, device=dev, tokens=out, prefill_ms=prefill_ms,
+                first_step_ms=first_ms, decode_ms_per_token=decode_ms,
+                tok_s=B * 1e3 / decode_ms, bypass_rate=bypass_rate,
+                launches=launches, params=params, prompt=prompt, cache=cache,
+                steps=steps, graphs=graphs)
+
+
+def _check_lm_args(ap, args) -> None:
+    """A full config only on the card: the CPU serves the smoke configs (a
+    full one holds GBs of weights)."""
+    from ..configs import get
+
+    if args.device == "cpu" and not args.smoke:
+        n = get(args.arch).param_count()
+        ap.error(f"--arch {args.arch} at its full config holds {n / 1e9:.1f}"
+                 f"B weights: pass --smoke to serve it on the CPU, or run "
+                 f"on the card")
+
+
 def main(argv=None) -> None:
+    from ..configs import ARCHS
+
     ap = argparse.ArgumentParser(
-        description="Serve synthetic TOOD streams through the port's TorR "
+        description="Serve an LM (prefill + decode, optionally reranked) "
+                    "or synthetic TOOD streams through the port's TorR "
                     "window engine.")
+    ap.add_argument("--arch", default="musicgen-large", choices=sorted(ARCHS),
+                    help="the LM to serve when neither --torr-streams nor "
+                         "--gateway-port is given (a registry name)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--rerank", action="store_true",
+                    help="fold the TorR HDC reranker into each decode "
+                         "step's logits (not for audio)")
+    ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--torr-streams", type=int, default=0,
                     help="serve N synthetic TOOD streams through the "
                          "multi-stream window engine and exit")
@@ -830,8 +1018,11 @@ def main(argv=None) -> None:
             use_async=not args.gateway_sync, device=args.device)
         return
     if args.torr_streams <= 0:
-        ap.error("--torr-streams N or --gateway-port PORT is required (the "
-                 "LM serving path is not ported)")
+        _check_lm_args(ap, args)
+        run_lm(args.arch, smoke=args.smoke, batch=args.batch,
+               prompt_len=args.prompt_len, gen=args.gen, rerank=args.rerank,
+               temperature=args.temperature, device=args.device)
+        return
     run_torr_streams(args.torr_streams, args.torr_frames, args.torr_slots,
                      serial=args.torr_serial, use_async=args.use_async,
                      mesh_devices=args.mesh, rt=args.rt,

@@ -1,0 +1,238 @@
+"""GQA/MQA/MHA attention with RoPE, qk-norm, sliding window and softcap (port
+of ``repro.models.attention``).
+
+Prefill uses *query-chunked exact attention*: a loop over query chunks of
+``attn_chunk`` keeps the live score tensor at [B, H, chunk, S]. Decode
+computes one token against the KV cache, whose row at the token's slot is
+written in place (``index_copy_`` at a device index), so the step reads
+nothing on the host and can be captured in a CUDA graph.
+
+As in the reference, q and k are rounded to bfloat16 before the score
+product even in a float32 model, and the product's result is bfloat16
+(``torch.einsum`` on two bfloat16 tensors returns bfloat16, as
+``jnp.einsum`` does) before it is cast to float32 and scaled; the
+probabilities are cast to v's dtype before the value product.
+
+The int8-quantized cache (``serve_quant="int8"``) is not ported yet
+(ROADMAP Queue 1): a dict cache raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs, \
+    softcap
+
+NEG_INF = -2.0e38
+BF16 = torch.bfloat16
+
+
+def init_attn_params(cfg: ModelConfig, dtype, cross: bool = False,
+                     generator: torch.Generator | None = None,
+                     device=None) -> Params:
+    d = cfg.d_model
+    hq = cfg.n_heads * cfg.head_dim
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    kv_in = cfg.vision_dim if cross and cfg.vision_dim else d
+
+    def w(shape):
+        return dense_init(shape, dtype, generator=generator, device=device)
+
+    p = dict(wq=w((d, hq)), wk=w((kv_in, hkv)), wv=w((kv_in, hkv)),
+             wo=w((hq, d)))
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
+    if cross:
+        p["kv_norm"] = torch.zeros((kv_in,), dtype=dtype, device=device)
+    return Params(**p)
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         kv_src: torch.Tensor | None = None):
+    """Project to per-head q, k, v. kv_src overrides the kv input (cross)."""
+    B = x.shape[0]
+    kv_x = x if kv_src is None else kv_src
+    q = (x @ p.wq).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    k = (kv_x @ p.wk).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = (kv_x @ p.wv).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.rmsnorm_eps)
+    return q, k, v
+
+
+def _grouped(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """[B, S, H, dh] -> [B, S, Hkv, G, dh]."""
+    B, S = q.shape[:2]
+    g = cfg.n_heads // cfg.n_kv_heads
+    return q.reshape(B, S, cfg.n_kv_heads, g, cfg.head_dim)
+
+
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """The reference's explicit max / exp / sum, in float32."""
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def _attend_chunk(q_c, k, v, mask, cfg: ModelConfig):
+    """q_c [B,Cq,Hkv,G,dh] vs full k/v [B,S,Hkv,dh]; mask [Cq,S] bool(keep)."""
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q_c.to(BF16),
+                     k.to(BF16)).float() * scale
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = torch.where(mask[None, None, None, :, :], s, NEG_INF)
+    pr = _softmax(s).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
+
+
+def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """Causal (and sliding-window) attention of grouped queries
+    [B,S,Hkv,G,dh] over k/v, one query chunk of ``attn_chunk`` at a time
+    (the reference's scan); [B, S, H*dh]."""
+    B, S = qg.shape[:2]
+    C = min(cfg.attn_chunk, S)
+    if S % C:
+        raise ValueError(f"prompt length {S} is not a multiple of the "
+                         f"attention chunk {C}")
+    key_pos = torch.arange(S, device=qg.device)
+    outs = []
+    for c0 in range(0, S, C):
+        qpos = c0 + torch.arange(C, device=qg.device)
+        keep = key_pos[None, :] <= qpos[:, None]
+        if cfg.sliding_window is not None:
+            keep &= key_pos[None, :] > qpos[:, None] - cfg.sliding_window
+        outs.append(_attend_chunk(qg[:, c0:c0 + C], k, v, keep, cfg))
+    return torch.cat(outs, dim=1).reshape(B, S, cfg.n_heads * cfg.head_dim)
+
+
+def attn_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               pos0: int = 0) -> torch.Tensor:
+    """Causal self-attention over the full sequence (chunked). x: [B,S,d]."""
+    return _self_attention(p, x, cfg, pos0)[0]
+
+
+def attn_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Like attn_train but also returns the (k, v) cache [B,S,Hkv,dh]."""
+    return _self_attention(p, x, cfg, 0)
+
+
+def _self_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos0: int):
+    S = x.shape[1]
+    q, k, v = _qkv(p, x, cfg)
+    pos = pos0 + torch.arange(S, device=x.device)
+    cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, pos)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = _causal_chunks(_grouped(q, cfg), k, v, cfg)
+    return o @ p.wo, (k, v)
+
+
+def _no_int8(cache, what: str):
+    if isinstance(cache, dict):
+        raise NotImplementedError(
+            f"{what}: the int8 cache (serve_quant='int8') is not ported "
+            "yet (ROADMAP Queue 1)")
+
+
+def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
+                cfg: ModelConfig, ring: bool = False):
+    """One-token decode. x: [B,1,d]; cache: (k, v) [B,Smax,Hkv,dh], written
+    in place at the token's slot and returned; pos: int32 [] on x's device.
+
+    ``ring``: cache is a sliding-window ring buffer (local attention); the
+    write index is pos % Smax and positions are reconstructed for masking.
+    """
+    _no_int8(cache, "attn_decode")
+    B = x.shape[0]
+    k_cache, v_cache = cache
+    S_max = k_cache.shape[1]
+    q, k_new, v_new = _qkv(p, x, cfg)
+    cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, pos[None])
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+    slot = (torch.remainder(pos, S_max) if ring
+            else torch.clamp(pos, max=S_max - 1))
+    index = slot.reshape(1).long()
+    k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
+
+    qg = _grouped(q, cfg)[:, 0]                       # [B,Hkv,G,dh]
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
+                     k_cache.to(BF16)).float() * scale
+    s = softcap(s, cfg.attn_logit_softcap)
+    kpos = torch.arange(S_max, device=x.device)
+    if ring:
+        # ring slot i holds absolute position pos - slot + i (i <= slot) or
+        # pos - slot + i - S_max (i > slot)
+        abs_pos = torch.where(kpos <= slot, pos - slot + kpos,
+                              pos - slot + kpos - S_max)
+        keep = (abs_pos >= 0) & (abs_pos <= pos)
+        if cfg.sliding_window is not None:
+            keep &= abs_pos > pos - cfg.sliding_window
+    else:
+        keep = kpos <= pos
+        if cfg.sliding_window is not None:
+            keep &= kpos > pos - cfg.sliding_window
+    s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    pr = _softmax(s).to(v_cache.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", pr, v_cache)
+    o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return o @ p.wo, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM): queries from text stream, kv from vision embeddings
+# ---------------------------------------------------------------------------
+
+def _vision_in(vis: torch.Tensor, p: Params) -> torch.Tensor:
+    """The normalised vision embeddings in the type their product with wk
+    takes (JAX promotes bfloat16 embeddings against float32 weights; torch
+    multiplies only equal types)."""
+    return vis.to(torch.promote_types(vis.dtype, p.wk.dtype))
+
+
+def cross_attn(p: Params, x: torch.Tensor, vis: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """x: [B,S,d]; vis: [B,Nv,vision_dim]. No causal mask, no rope."""
+    B, S, _ = x.shape
+    vis = _vision_in(rmsnorm(vis, p.kv_norm, cfg.rmsnorm_eps), p)
+    q, k, v = _qkv(p, x, cfg, kv_src=vis)
+    qg = _grouped(q, cfg)
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(BF16),
+                     k.to(BF16)).float() * scale
+    pr = _softmax(s).to(v.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v).reshape(B, S, -1)
+    return o @ p.wo
+
+
+def cross_attn_kv(p: Params, vis: torch.Tensor, cfg: ModelConfig):
+    """Precompute cross KV from vision embeddings (cached for decode)."""
+    B = vis.shape[0]
+    vis = _vision_in(rmsnorm(vis, p.kv_norm, cfg.rmsnorm_eps), p)
+    k = (vis @ p.wk).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = (vis @ p.wv).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p.k_norm, cfg.rmsnorm_eps)
+    return k, v
+
+
+def cross_attn_decode(p: Params, x: torch.Tensor, kv: tuple,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Decode-time cross-attention against cached vision KV."""
+    B = x.shape[0]
+    k, v = kv
+    q = (x @ p.wq).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
+    qg = _grouped(q, cfg)[:, 0]
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
+                     k.to(BF16)).float() * scale
+    pr = _softmax(s).to(v.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", pr, v).reshape(B, 1, -1)
+    return o @ p.wo

@@ -1,0 +1,158 @@
+"""Multi-head Latent Attention (DeepSeek V2/V3; port of ``repro.models.mla``).
+
+KV activations are down-projected to a compact latent c_kv (kv_lora_rank)
+plus a shared RoPE key slice; per-head keys/values are up-projected from the
+latent. The KV cache stores only [B, S, kv_lora_rank + rope_head_dim].
+
+Decode uses the absorbed formulation: W_UK is folded into the query
+(q_lat = W_UK^T q_nope) and W_UV is applied after attending over latents, so
+per-step FLOPs scale with kv_lora_rank instead of n_heads * head_dim and the
+cache is read once. The new latent row is written in place at the token's
+slot (``index_copy_`` at a device index).
+
+Scores are bfloat16 products cast to float32, as in ``models.attention``;
+the nope and rope products are each rounded to bfloat16 and then summed in
+float32, as the reference computes ``(a + b).astype(f32)`` of two bfloat16
+products once XLA has compiled it (the add is folded into the cast that
+follows it, so the sum is not rounded to bfloat16).
+The int8 latent cache (``serve_quant="int8"``) is not ported yet (ROADMAP
+Queue 1): a dict cache raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention import BF16, NEG_INF, _no_int8, _softmax
+from .config import ModelConfig
+from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs
+
+
+def init_mla_params(cfg: ModelConfig, dtype,
+                    generator: torch.Generator | None = None,
+                    device=None) -> Params:
+    d = cfg.d_model
+    H = cfg.n_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+
+    def w(shape):
+        return dense_init(shape, dtype, generator=generator, device=device)
+
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = w((d, cfg.q_lora_rank))
+        p["q_norm_lora"] = torch.zeros((cfg.q_lora_rank,), dtype=dtype,
+                                       device=device)
+        p["wq_b"] = w((cfg.q_lora_rank, H * (dn + dr)))
+    else:
+        p["wq"] = w((d, H * (dn + dr)))
+    p["wkv_a"] = w((d, r + dr))                   # latent + rope key
+    p["kv_norm_lora"] = torch.zeros((r,), dtype=dtype, device=device)
+    p["wk_b"] = w((r, H * dn))                    # W_UK
+    p["wv_b"] = w((r, H * dv))                    # W_UV
+    p["wo"] = w((H * dv, d))
+    return Params(**p)
+
+
+def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = rmsnorm(x @ p.wq_a, p.q_norm_lora, cfg.rmsnorm_eps) @ p.wq_b
+    else:
+        q = x @ p.wq
+    q = q.reshape(B, S, H, dn + dr)
+    return q[..., :dn], q[..., dn:]                              # nope, rope
+
+
+def _latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            pos: torch.Tensor):
+    """c_kv (normalized latent) and rotated shared rope key."""
+    B, S, _ = x.shape
+    kv = x @ p.wkv_a
+    c = rmsnorm(kv[..., :cfg.kv_lora_rank], p.kv_norm_lora, cfg.rmsnorm_eps)
+    k_rope = kv[..., cfg.kv_lora_rank:].reshape(B, S, 1, cfg.rope_head_dim)
+    cos, sin = rope_freqs(cfg.rope_head_dim, cfg.rope_theta, pos)
+    k_rope = apply_rope(k_rope, cos, sin)[:, :, 0]               # [B,S,dr]
+    return c, k_rope
+
+
+def mla_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              latent: tuple | None = None) -> torch.Tensor:
+    """Full-sequence causal MLA (non-absorbed: materialize per-head k, v),
+    one query chunk of ``attn_chunk`` at a time."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    pos = torch.arange(S, device=x.device)
+    q_nope, q_rope = _queries(p, x, cfg)
+    cos, sin = rope_freqs(dr, cfg.rope_theta, pos)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c, k_rope = _latent(p, x, cfg, pos) if latent is None else latent
+    k_nope = (c @ p.wk_b).reshape(B, S, H, dn)
+    v = (c @ p.wv_b).reshape(B, S, H, dv)
+
+    scale = (dn + dr) ** -0.5
+    C = min(cfg.attn_chunk, S)
+    if S % C:
+        raise ValueError(f"prompt length {S} is not a multiple of the "
+                         f"attention chunk {C}")
+    key_pos = torch.arange(S, device=x.device)
+    outs = []
+    for c0 in range(0, S, C):
+        s = (torch.einsum("bqhd,bkhd->bhqk", q_nope[:, c0:c0 + C].to(BF16),
+                          k_nope.to(BF16)).float()
+             + torch.einsum("bqhd,bkd->bhqk", q_rope[:, c0:c0 + C].to(BF16),
+                            k_rope.to(BF16)).float()) * scale
+        qpos = c0 + torch.arange(C, device=x.device)
+        keep = key_pos[None, :] <= qpos[:, None]
+        s = torch.where(keep[None, None, :, :], s, NEG_INF)
+        pr = _softmax(s).to(v.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", pr, v))
+    o = torch.cat(outs, dim=1).reshape(B, S, H * dv)
+    return o @ p.wo
+
+
+def mla_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Training-style attention + returns the latent cache [B,S,r+dr]."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    c, k_rope = _latent(p, x, cfg, pos)
+    out = mla_train(p, x, cfg, latent=(c, k_rope))
+    return out, torch.cat([c, k_rope], dim=-1)
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: torch.Tensor,
+               pos: torch.Tensor, cfg: ModelConfig):
+    """Absorbed one-token decode against the latent cache [B, S_max, r+dr],
+    written in place at the token's slot and returned."""
+    _no_int8(cache, "mla_decode")
+    B = x.shape[0]
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    q_nope, q_rope = _queries(p, x, cfg)                   # [B,1,H,*]
+    cos, sin = rope_freqs(dr, cfg.rope_theta, pos[None])
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_new, k_rope_new = _latent(p, x, cfg, pos[None])
+    new_entry = torch.cat([c_new, k_rope_new.reshape(B, 1, dr)], dim=-1)
+    S_max = cache.shape[1]
+    slot = torch.clamp(pos, max=S_max - 1)
+    cache.index_copy_(1, slot.reshape(1).long(), new_entry.to(cache.dtype))
+
+    wk_b = p.wk_b.reshape(r, H, dn)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b)   # absorb W_UK
+    scale = (dn + dr) ** -0.5
+    keep = torch.arange(S_max, device=x.device) <= pos
+
+    c_all = cache[..., :r]
+    k_rope_all = cache[..., r:]
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.to(BF16), c_all.to(BF16)).float()
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(BF16),
+                        k_rope_all.to(BF16)).float()) * scale
+    s = torch.where(keep[None, None, :], s, NEG_INF)
+    pr = _softmax(s).to(c_all.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr, c_all)       # attend over latents
+
+    wv_b = p.wv_b.reshape(r, H, dv)
+    o = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), wv_b)  # absorb W_UV
+    o = o.reshape(B, 1, H * dv)
+    return o @ p.wo, cache
