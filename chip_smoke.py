@@ -197,16 +197,45 @@ bit:
      config prints ``generated shape (2, 8, 4)``. In (b) and (c) every
      vector leaf (norm offsets, the VLM gate: zero at init) is drawn. The
      weights are freed before phase 10.
+ 16. the recurrent families and the int8 cache (run after 15, before 10,
+     under phase 15's GEMM flags): (e) ``int8_dot`` (``rows`` and
+     ``cols``) against its plain version (float64 products) bit for bit
+     at the shapes (d) launches, at ragged ones (K = 13 in rows of 17,
+     S = 1 and 4099) and with every code +-127 at S = 32768, timed at
+     (d)'s shapes beside its bytes bound; (d) int8 decode from
+     ``init_cache`` of qwen3-14b at its full config and of
+     deepseek-v2-236b at its published widths cut to 2 layers (bf16
+     weights, batch 4, 16 tokens): every step's softmax within 0.05 of the
+     bf16 cache's decode (``tests/test_beyond_paper.py``'s criterion), the
+     logits' largest difference, ``int8_dot`` launched twice a layer and
+     step (its launches counted from 0 around this run: the kernel's main
+     path), the steps replayed from a CUDA graph bit-equal to eager; (a)
+     ``run_lm`` at recurrentgemma-2b's and xlstm-1.3b's full configs
+     (bf16, random weights, batch 4, a 128-token prompt, 32 tokens,
+     reranked), the same tokens eagerly bit-equal to the captured run,
+     prefill first and warm, the captured step alone and eager against
+     the bytes bound (weights once, the decode state read and written),
+     the graph's copy in and clone out of the state as a row of its own,
+     then the launcher's run; ``sign_project_pack`` and
+     ``packed_hamming_batched`` once a reranked step; (b) both at their
+     published widths cut to one group (3 and 8 layers) in float32:
+     decode after prefill equals prefill of the longer prompt within
+     2e-2; (c) their smoke configs, card against the port's CPU run as in
+     15 (c) with a 32-token prompt, longer than the hybrid's window of
+     16; (f) ``python -m repro_torch.launch.serve --arch xlstm-1.3b
+     --batch 2 --prompt-len 16 --gen 8`` prints ``generated shape (2,
+     8)``.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
 capture recorded (``GraphFamily``), so the counts keep their meaning.
 Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
 rows (captured and eager ms/step, windows/s, idle share), the async vs
-sync rows, the supervised, gateway, front-end and LM rows and the
-per-kernel report (with each kernel's ``front_end_launches`` from phase 14
-and ``lm_launches`` from phase 15) are printed as JSON before the last
-line, which is
+sync rows, the supervised, gateway, front-end, LM and recurrent/int8 rows
+and the per-kernel report (with each kernel's ``front_end_launches`` from
+phase 14, ``lm_launches`` from phase 15 and ``phase16_launches`` from
+phase 16; ``int8_dot``'s ``launches`` are phase 16 (d)'s) are printed as
+JSON before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3474,7 +3503,8 @@ def _lm_card_vs_cpu():
     return rows
 
 
-def _lm_card_vs_cpu_at(score_dtype):
+def _lm_card_vs_cpu_at(score_dtype, names=tuple(n for n, _ in LM_DEPTHS),
+                      S=16, tag="(c)"):
     from repro_torch.configs import get_smoke
     from repro_torch.core import capture
     from repro_torch.launch import serve
@@ -3482,13 +3512,13 @@ def _lm_card_vs_cpu_at(score_dtype):
 
     rows = []
     scores = str(score_dtype).removeprefix("torch.")
-    for name, _ in LM_DEPTHS:
+    for name in names:
         cfg = dataclasses.replace(get_smoke(name), dtype="float32")
         cpu = tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
         _lm_offsets(cpu, torch.Generator().manual_seed(6))
         card = copy.deepcopy(cpu).to("cuda")
-        batch = _lm_prompt(cfg, 2, 16 + LM_SMOKE_STEPS, 7, "cpu")
-        short = {k: (v[:, :16] if k == "tokens" else v)
+        batch = _lm_prompt(cfg, 2, S + LM_SMOKE_STEPS, 7, "cpu")
+        short = {k: (v[:, :S] if k == "tokens" else v)
                  for k, v in batch.items()}
         c_cpu, l_cpu = tf.prefill(cpu, short, cfg)
         c_card, l_card = tf.prefill(card, {k: v.cuda()
@@ -3501,7 +3531,7 @@ def _lm_card_vs_cpu_at(score_dtype):
                         for n in names)
         pairs = [("prefill logits", l_card, l_cpu)]
         for t in range(LM_SMOKE_STEPS):
-            tok = batch["tokens"][:, 16 + t]
+            tok = batch["tokens"][:, S + t]
             c_cpu, lc, hc = tf.decode_step(cpu, c_cpu, tok, cfg,
                                            return_hidden=True)
             c_card, lg, hg = tf.decode_step(card, c_card, tok.cuda(), cfg,
@@ -3532,8 +3562,9 @@ def _lm_card_vs_cpu_at(score_dtype):
                                      f"{what} card != cpu")
         rule = (f"{LM_SMOKE_TOL}" if score_dtype == torch.float32 else
                 f"{LM_SMOKE_TOL}, widened to 2^-8 of each tensor's scale")
-        log(f"[lm] (c) {name} smoke, float32, {scores} scores: prefill and "
-            f"{LM_SMOKE_STEPS} decode steps on the card == the CPU within "
+        log(f"[lm] {tag} {name} smoke, float32, {scores} scores: prefill of "
+            f"{S} and {LM_SMOKE_STEPS} decode steps on the card == the CPU "
+            f"within "
             f"{rule} (max |diff| {err:.3e} over logits, hidden and cache); "
             f"the steps replayed from a CUDA graph == eager bit for bit")
         rows.append(dict(arch=name, scores=scores, max_abs_diff=err))
@@ -3583,6 +3614,478 @@ def phase_lm(report):
     gc.collect()
     torch.cuda.empty_cache()
     return row
+
+
+# phase 16: the recurrent families at their full configs
+# (src/repro/configs/registry.py: recurrentgemma-2b, xlstm-1.3b) served as
+# the launcher serves them, and the int8 cache's decode
+REC_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")
+REC_BATCH, REC_PROMPT, REC_GEN = 4, 128, 32
+# (b): published widths, depth cut to one group (the hybrid's rglru,
+# rglru, local_attn; the ssm's seven mLSTM layers and its sLSTM layer)
+REC_DEPTHS = (("recurrentgemma-2b", 3), ("xlstm-1.3b", 8))
+REC_SMOKE_PROMPT = 32       # (c): longer than the hybrid's smoke window 16
+# (d): int8 decode from init_cache, T tokens into a cache of S_MAX slots
+INT8_MODELS = (("qwen3-14b", None), ("deepseek-v2-236b", 2))
+INT8_T, INT8_S_MAX = 16, 64
+INT8_SOFTMAX_TOL = 0.05     # tests/test_beyond_paper.py's criterion
+
+
+def _state_bytes(cache) -> int:
+    from repro_torch.core.capture import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(
+        {k: v for k, v in cache.items() if k != "pos"}))
+
+
+def _step_bytes(params, cache, cfg, B) -> float:
+    """The least bytes a decode step moves: every weight read once (an
+    untied embedding only at the batch's B rows; a tied one is read whole
+    as the unembedding) and every cache leaf read and written once."""
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    if "unembed" in params:
+        e = params.embed
+        weights -= e.numel() * e.element_size()
+        weights += B * e.shape[-1] * e.element_size()
+    return weights + 2 * _state_bytes(cache)
+
+
+def _slstm_prefill(params, cfg, prefill_ms):
+    """xlstm: one sLSTM layer's prefill alone at the run's shape (the loop
+    over the prompt, a few launches a token): its wall time (warm, to a
+    sync), then under torch.profiler its device kernels and their busy
+    time; times the model's sLSTM layers, against the whole prefill."""
+    from repro_torch.models import recurrent as rec
+
+    p = params.groups[0][f"slstm_{cfg.slstm_every - 1}"].cell
+    x = torch.randn((REC_BATCH, REC_PROMPT, cfg.d_model),
+                    generator=torch.Generator("cuda").manual_seed(12),
+                    device="cuda").to(torch.bfloat16)
+    rec.slstm_prefill(p, x, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.slstm_prefill(p, x, cfg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rec.slstm_prefill(p, x, cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.duration_ns() for e in kernels) / 1e6
+    n = len(params.groups)
+    row = dict(layer_wall_ms=wall_ms, layer_kernels=len(kernels),
+               layer_busy_ms=busy_ms, layers=n, wall_ms=n * wall_ms,
+               kernels=n * len(kernels), share_of_prefill=n * wall_ms
+               / prefill_ms)
+    log(f"[recurrent] (a) {cfg.name}: one sLSTM layer's prefill of "
+        f"{REC_PROMPT} tokens (batch {REC_BATCH}): {wall_ms:.2f} ms wall, "
+        f"{len(kernels)} kernels ({len(kernels) / REC_PROMPT:.1f} a token) "
+        f"busy {busy_ms:.3f} ms on the device (torch.profiler); x {n} "
+        f"layers: {n * wall_ms:.1f} ms, {100 * row['share_of_prefill']:.0f} "
+        f"% of the warm prefill ({prefill_ms:.1f} ms)")
+    return row
+
+
+def _rec_serving(arch, report):
+    """(a) ``run_lm`` at ``arch``'s full config, reranked, the decode step
+    captured; the same tokens eagerly, bit-equal to the captured run;
+    prefill again warm; the captured step alone and the cache's copy."""
+    import gc
+
+    from repro_torch.core import capture
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    res = serve.run_lm(arch, batch=REC_BATCH, prompt_len=REC_PROMPT,
+                       gen=REC_GEN, rerank=True, record=True)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reranked = REC_GEN - 1
+    for name in ("sign_project_pack", "packed_hamming_batched"):
+        if launches[name] != reranked:
+            raise AssertionError(f"recurrent: {arch}: {name} launched "
+                                 f"{launches[name]} times in {reranked} "
+                                 "reranked steps")
+        report[name].setdefault("phase16_launches", {})[arch] = \
+            launches[name]
+    cfg, params, fam = res["cfg"], res["params"], res["graphs"]
+    if not isinstance(fam, capture.GraphFamily) or len(fam) != 1 or \
+            fam.replays != REC_GEN:
+        raise AssertionError(f"recurrent: {arch}: the decode step was not "
+                             "replayed from one graph every step")
+    n_params = sum(p.numel() for p in params.parameters())
+    # prefill again (warm), then the same tokens eagerly
+    toks = torch.from_numpy(res["tokens"]).cuda()
+    s_max = REC_PROMPT + 64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, _ = tf.prefill(params, res["prompt"], cfg, s_max=s_max)
+    torch.cuda.synchronize()
+    prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    slstm = (_slstm_prefill(params, cfg, prefill_warm_ms)
+             if cfg.family == "ssm" else None)
+    bytes_step = _step_bytes(params, cache, cfg, REC_BATCH)
+    state_mb = _state_bytes(cache) / 1e6
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(REC_GEN):
+        cache, lg, h = tf.decode_step(params, cache, toks[:, t], cfg,
+                                      return_hidden=True)
+        outs.append((lg, h))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / REC_GEN
+    for t, ((lg, h), (lg_c, h_c)) in enumerate(zip(outs, res["steps"])):
+        if not (bits_equal(lg, lg_c) and bits_equal(h, h_c)):
+            raise AssertionError(f"recurrent: {arch}: eager step {t} != "
+                                 "the captured step")
+    for a, b in zip(_lm_leaves(cache), _lm_leaves(res["cache"])):
+        if not bits_equal(a, b):
+            raise AssertionError(f"recurrent: {arch}: the eager cache != "
+                                 "the captured one")
+    del outs
+    key = (serve.LM_DECODE, cfg, REC_BATCH, s_max)
+    names = tuple(res["cache"])
+    step = serve._decode_segment(params, cfg, names)
+    leaves = tuple(res["cache"][n] for n in names)
+    recorded = dict(prefill_first_ms=res["prefill_ms"],
+                    recorded_decode_ms=res["decode_ms_per_token"])
+    del res, cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(REC_GEN):
+        leaves, _, _ = fam.run(key, step, (leaves, toks[:, t]))
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / REC_GEN
+    cache_leaves = _lm_leaves(leaves)
+    copy_ms = device_ms(lambda: [x.clone() for x in cache_leaves], calls=3,
+                        reps=5)
+    bound_ms = bytes_step / PEAK_BYTES_S * 1e3
+    row = dict(
+        arch=cfg.name, n_params=n_params, bytes_per_step=bytes_step,
+        **recorded,
+        bound_ms=bound_ms, state_mb=state_mb, peak_gib=peak / 2**30,
+        replay_ms=replay_ms, eager_ms=eager_ms,
+        prefill_warm_ms=prefill_warm_ms, cache_copy_ms=copy_ms,
+        cache_copy_bytes=4 * state_mb * 1e6, slstm_prefill=slstm)
+    log(f"[recurrent] (a) {cfg.name} full config ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.family}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}): {n_params / 1e9:.3f}B parameters drawn on the card; "
+        f"batch {REC_BATCH}, prompt {REC_PROMPT}, {REC_GEN} tokens, "
+        f"reranked; the decode state {state_mb:.1f} MB; peak "
+        f"memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"[recurrent] (a) {cfg.name}: the step alone on the same tokens: "
+        f"captured (copy in, replay, clone out) {replay_ms:.3f} ms/token, "
+        f"eager {eager_ms:.3f} ms/token; bytes bound {bound_ms:.3f} ms "
+        f"({bytes_step / 1e9:.3f} GB a step at {PEAK_BYTES_S / 1e12:.2f} "
+        f"TB/s: weights once, the state read and written); eager == "
+        f"captured bit for bit in {REC_GEN} steps' logits and hidden "
+        f"states and the final cache; prefill warm {prefill_warm_ms:.2f} "
+        f"ms; launches {launches}")
+    log(f"[recurrent] (a) {cfg.name}: the graph's cache copy: one copy of "
+        f"the {state_mb:.1f} MB state {copy_ms:.4f} ms on the device; a "
+        f"replay copies it in and clones it out ({4 * state_mb / 1e3:.3f} GB "
+        f"of traffic, {2 * copy_ms:.4f} ms, "
+        f"{100 * 2 * copy_ms / replay_ms:.1f} % of the captured step)")
+    del leaves, cache_leaves, step, fam, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's run as a user makes it (nothing recorded)
+    run = serve.run_lm(arch, batch=REC_BATCH, prompt_len=REC_PROMPT,
+                       gen=REC_GEN, rerank=True)
+    row["served"] = {k: run[k] for k in (
+        "prefill_ms", "first_step_ms", "decode_ms_per_token", "tok_s")}
+    log(f"[recurrent] (a) {cfg.name} served: prefill {run['prefill_ms']:.2f} "
+        f"ms (the recording run's, the first: {row['prefill_first_ms']:.2f} "
+        f"ms); decode (captured, reranked, with sampling) "
+        f"{run['decode_ms_per_token']:.3f} "
+        f"ms/token, {run['tok_s']:.1f} tok/s; first step (capture) "
+        f"{run['first_step_ms']:.1f} ms; bypass rate {run['bypass_rate']}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _rec_continuation():
+    """(b) Published widths cut to one group, float32: prefill(t[:16])
+    then decode(t[16]) equals prefill(t[:17]) within 2e-2."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tf
+
+    rows = []
+    for name, depth in REC_DEPTHS:
+        cfg = dataclasses.replace(get(name), n_layers=depth,
+                                  dtype="float32")
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator("cuda").manual_seed(2),
+                                "cuda")
+        _lm_offsets(params, torch.Generator("cuda").manual_seed(3))
+        batch = _lm_prompt(cfg, 2, 17, 4, "cuda")
+        cache, _ = tf.prefill(params, {"tokens": batch["tokens"][:, :16]},
+                              cfg)
+        _, dec = tf.decode_step(params, cache, batch["tokens"][:, 16], cfg)
+        _, full = tf.prefill(params, batch, cfg)
+        err = float((dec - full).abs().max())
+        ok = torch.allclose(dec, full, rtol=LM_CONT_TOL, atol=LM_CONT_TOL)
+        secs = time.perf_counter() - t0
+        log(f"[recurrent] (b) {name} at {depth} of {get(name).n_layers} "
+            f"layers, d_model {cfg.d_model}, float32: decode after prefill "
+            f"vs prefill of the longer prompt, max |diff| {err:.3e} (rule "
+            f"rtol = atol = {LM_CONT_TOL}); {secs:.1f} s")
+        if not ok:
+            raise AssertionError(f"recurrent: {name} decode != prefill "
+                                 f"continuation ({err})")
+        rows.append(dict(arch=name, layers=depth, max_abs_diff=err))
+        del params, cache
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _int8_dot_kernel(report):
+    """(e) ``int8_dot`` against its plain version (float64 products on the
+    card), bit for bit, at the shapes (d) launches and at ragged and
+    extreme ones; each timed at (d)'s shapes beside its bytes bound."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import int8_dot, ref
+
+    name = "int8_dot"
+    gen = torch.Generator().manual_seed(23)
+
+    def codes(*shape, extreme=False):
+        if extreme:
+            x = torch.randint(0, 2, shape, generator=gen) * 254 - 127
+        else:
+            x = torch.randint(-127, 128, shape, generator=gen)
+        return x.to(torch.int8).cuda()
+
+    q, ds = get("qwen3-14b"), get("deepseek-v2-236b")
+    B, S = REC_BATCH, INT8_S_MAX
+    G = q.n_heads // q.n_kv_heads
+    L = ds.mla_cache_dim
+    main = {   # (label, fn name, B, Hk, G, S, K, row length)
+        "qwen3-14b scores (rows)": ("rows", B, q.n_kv_heads, G, S,
+                                    q.head_dim, q.head_dim),
+        "qwen3-14b values (cols)": ("cols", B, q.n_kv_heads, G, S,
+                                    q.head_dim, q.head_dim),
+        "deepseek-v2 scores (rows)": ("rows", B, 1, ds.n_heads, S, L, L),
+        "deepseek-v2 values (cols)": ("cols", B, 1, ds.n_heads, S,
+                                      ds.kv_lora_rank, L),
+    }
+    cases = dict(main)
+    for fn in ("rows", "cols"):
+        cases[f"ragged {fn} K=13 L=17 S=37"] = (fn, 3, 2, 3, 37, 13, 17)
+        cases[f"ragged {fn} S=1"] = (fn, 2, 2, 5, 1, 128, 128)
+        cases[f"ragged {fn} S=4099"] = (fn, 1, 8, 5, 4099, 128, 128)
+        cases[f"extreme {fn} +-127 S=32768"] = (fn, 1, 8, 5, 32768, 128,
+                                                128)
+    errs, by_shape = {}, {}
+    for label, (fn, b, hk, g, s, k, l) in cases.items():
+        extreme = label.startswith("extreme")
+        c = codes(b, s, hk, l, extreme=extreme)
+        a = codes(b, hk, g, k if fn == "rows" else s, extreme=extreme)
+        if fn == "rows":
+            run = (lambda a=a, c=c: int8_dot.rows(a, c))
+            plain = (lambda a=a, c=c: ref.int8_dot_rows_ref(a, c))
+            out_n = b * hk * g * s
+        else:
+            run = (lambda a=a, c=c, k=k: int8_dot.cols(a, c, k))
+            plain = (lambda a=a, c=c, k=k: ref.int8_dot_cols_ref(a, c, k))
+            out_n = b * hk * g * k
+        errs[label] = _check(name, label, _one_launch(name, run), plain())
+        if label in main:
+            moved = a.numel() + b * s * hk * k + 4 * out_n
+            ops = 2 * b * hk * g * s * k
+            bms, by = bound(moved, ops / PEAK_INT8_S)
+            row = dict(ms=device_ms(run), call_ms=cuda_ms(run),
+                       plain_ms=cuda_ms(plain), bound_ms=bms, bound_by=by,
+                       bytes=moved)
+            by_shape[label] = row
+            log(f"[time] {name} {label} [B={b}, Hk={hk}, G={g}, S={s}, "
+                f"K={k}, L={l}]: {row['ms']:.4f} ms device (graph of 20), "
+                f"{row['call_ms']:.4f} ms a call, plain (float64 einsum) "
+                f"{row['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by}); no "
+                "PyTorch call computes it (no integer product on CUDA)")
+    first = next(iter(main))
+    report[name] = dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_dot.cu",
+        replaces="src/repro/models/attention.py:178 (jnp.einsum on int8 "
+                 "codes; no Pallas kernel)",
+        max_abs_err=max(errs.values()), library_ms=None, main_shape=first,
+        **{k: by_shape[first][k] for k in ("ms", "call_ms", "plain_ms",
+                                            "bound_ms", "bound_by")},
+        by_shape=by_shape)
+    return by_shape
+
+
+def _int8_decode(report):
+    """(d) int8 decode from ``init_cache`` at qwen3-14b's full config and
+    deepseek-v2-236b's published widths cut to 2 layers (bf16 weights):
+    every step's softmax within 0.05 of the bf16 cache's decode (the
+    reference's criterion), the logits' largest difference reported; the
+    int8 steps replayed from a CUDA graph bit-equal to eager. Launches of
+    ``int8_dot`` counted from 0 around the eager int8 decode: the main
+    path's run."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.core import capture
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    rows, total = [], 0
+    for name, depth in INT8_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get(name) if depth is None else dataclasses.replace(
+            get(name), n_layers=depth)
+        cfgq = dataclasses.replace(cfg, serve_quant="int8")
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                "cuda")
+        toks = _lm_prompt(cfg, REC_BATCH, INT8_T, 9, "cuda")["tokens"]
+        cb = tf.init_cache(cfg, REC_BATCH, INT8_S_MAX, "cuda")
+        logits_b = []
+        for t in range(INT8_T):
+            cb, lb = tf.decode_step(params, cb, toks[:, t], cfg)
+            logits_b.append(lb)
+        del cb
+        cq = tf.init_cache(cfgq, REC_BATCH, INT8_S_MAX, "cuda")
+        fresh = capture.tree_map(torch.clone, cq)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t1 = time.perf_counter()
+        logits_q = []
+        for t in range(INT8_T):
+            cq, lq = tf.decode_step(params, cq, toks[:, t], cfgq)
+            logits_q.append(lq)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t1) * 1e3 / INT8_T
+        n = build.LAUNCHES["int8_dot"]
+        want = 2 * cfg.n_layers * INT8_T
+        if n != want:
+            raise AssertionError(f"int8: {name}: int8_dot launched {n} "
+                                 f"times, {want} expected")
+        total += n
+        sm = max(float((torch.softmax(a, -1) - torch.softmax(b, -1)).abs()
+                       .max()) for a, b in zip(logits_b, logits_q))
+        dl = max(float((a - b).abs().max())
+                 for a, b in zip(logits_b, logits_q))
+        scale = max(float(a.abs().max()) for a in logits_b)
+        if not sm < INT8_SOFTMAX_TOL:
+            raise AssertionError(f"int8: {name}: max |softmax diff| {sm}")
+        # the same steps through a CUDA graph, from a fresh int8 cache
+        names = tuple(fresh)
+        step = serve._decode_segment(params, cfgq, names)
+        fam = capture.GraphFamily()
+        leaves = tuple(fresh[k] for k in names)
+        key = (serve.LM_DECODE, cfgq, REC_BATCH, INT8_S_MAX)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(INT8_T):
+            leaves, lg, _ = fam.run(key, step, (leaves, toks[:, t]))
+            if t == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            if not bits_equal(lg, logits_q[t]):
+                raise AssertionError(f"int8: {name}: captured step {t} != "
+                                     "eager")
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t1) * 1e3 / (INT8_T - 1)
+        for a, b in zip(_lm_leaves(leaves), _lm_leaves(
+                tuple(cq[k] for k in names))):
+            if not bits_equal(a, b):
+                raise AssertionError(f"int8: {name}: the captured cache != "
+                                     "the eager one")
+        secs = time.perf_counter() - t0
+        label = cfg.name + (f" at {depth} of {get(name).n_layers} layers"
+                            if depth else " full config")
+        log(f"[int8] (d) {label} (bf16 weights, batch {REC_BATCH}, "
+            f"{INT8_T} tokens from init_cache, S_max {INT8_S_MAX}): max "
+            f"|softmax(bf16 cache) - softmax(int8 cache)| {sm:.3e} (rule < "
+            f"{INT8_SOFTMAX_TOL}); max |logit diff| {dl:.4f} at a logit "
+            f"scale of {scale:.3f}; int8_dot launched {n} times ({want} "
+            f"expected); eager {eager_ms:.3f} ms/token, captured "
+            f"{replay_ms:.3f} ms/token (copy in, replay, clone out), "
+            f"captured == eager bit for bit in every step and the cache; "
+            f"{secs:.1f} s")
+        rows.append(dict(arch=cfg.name, layers=cfg.n_layers,
+                         max_softmax_diff=sm, max_logit_diff=dl,
+                         logit_scale=scale, int8_dot_launches=n,
+                         eager_ms=eager_ms, replay_ms=replay_ms))
+        del params, cq, fresh, leaves, step, fam, logits_b, logits_q
+    report["int8_dot"]["launches"] = total
+    return rows
+
+
+def _rec_cli():
+    """(f) The launcher as a user runs it, in a subprocess, at
+    xlstm-1.3b's full config."""
+    import os
+    import subprocess
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "xlstm-1.3b", "--batch", "2", "--prompt-len", "16", "--gen", "8"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(
+                             ROOT / "src")))
+    secs = time.perf_counter() - t0
+    if out.returncode != 0 or "generated shape (2, 8)" not in out.stdout:
+        raise AssertionError(f"recurrent: the launcher failed "
+                             f"({out.returncode}): {out.stdout[-2000:]} "
+                             f"{out.stderr[-2000:]}")
+    for line in out.stdout.splitlines():
+        if line.startswith("[serve]"):
+            log(f"[recurrent] (f) {line}")
+    log(f"[recurrent] (f) python -m repro_torch.launch.serve --arch "
+        f"xlstm-1.3b --batch 2 --prompt-len 16 --gen 8: exit 0, "
+        f"{secs:.1f} s")
+    return dict(seconds=secs)
+
+
+def phase_recurrent(report):
+    """Phase 16 (after 15, before 10; TF32 and reduced-precision
+    reductions off as in phase 15): (e) ``int8_dot`` against its plain
+    version and timed; (d) int8 decode from ``init_cache``; (a) both
+    recurrent families at their full configs through ``run_lm``; (b) their
+    published widths cut in depth, decode == prefill continuation; (c)
+    their smoke configs, card == CPU; (f) the CLI at xlstm-1.3b's full
+    config. The launches of ``int8_dot`` (d) and of the reranker's two
+    kernels (a) must be above zero."""
+    row = {}
+    with _lm_flags() as flags:
+        row["flags"] = flags
+        row["int8_dot"] = _int8_dot_kernel(report)
+        row["int8_decode"] = _int8_decode(report)
+        row["serve"] = [_rec_serving(arch, report) for arch in REC_ARCHS]
+        row["continuation"] = _rec_continuation()
+        row["card_vs_cpu"] = [
+            r for dtype in (torch.float32, torch.bfloat16)
+            for r in _with_scores(dtype, REC_ARCHS, REC_SMOKE_PROMPT)]
+    row["cli"] = _rec_cli()
+    for name in ("int8_dot", "sign_project_pack", "packed_hamming_batched"):
+        n = report[name].get("launches") if name == "int8_dot" else sum(
+            report[name].get("phase16_launches", {}).values())
+        if not n:
+            raise AssertionError(f"phase 16: {name} never launched")
+    return row
+
+
+def _with_scores(dtype, names, S):
+    with _lm_scores(dtype):
+        return _lm_card_vs_cpu_at(dtype, names, S, tag="(c) [recurrent]")
 
 
 def main() -> int:
@@ -3700,6 +4203,8 @@ def main() -> int:
     done("front end (events, encoder, bridge trainer, reranker)")
     lm_row = phase_lm(report)
     done("LM serving")
+    rec_row = phase_recurrent(report)
+    done("recurrent families and int8 decode")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -3714,6 +4219,7 @@ def main() -> int:
     print(json.dumps({"gateway": gw_rows}))
     print(json.dumps({"front_end": fe_row}))
     print(json.dumps({"lm_serving": lm_row}))
+    print(json.dumps({"recurrent_int8": rec_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

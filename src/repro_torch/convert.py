@@ -227,29 +227,48 @@ def lm_param_specs(params) -> dict:
     return flat
 
 
+# decode-cache leaves the reference keeps in float32 (recurrent states,
+# int8 scales) or in int8 (the int8 codes), by their key; every other float
+# leaf is in the model's dtype
+_F32_LEAVES = frozenset({"h", "C", "n", "m", "c", "ks", "vs", "s"})
+_INT8_LEAVES = frozenset({"kq", "vq", "q"})
+
+
 def lm_cache_from_numpy(cfg, cache: dict) -> dict:
-    """The reference's decode cache (a dict of numpy arrays and tuples of
-    them) -> the port's on the CPU: float leaves in the config's dtype,
-    ``pos`` an int32 scalar tensor."""
+    """The reference's decode cache (a dict of numpy arrays, tuples and
+    dicts of them) -> the port's on the CPU: each leaf in the reference's
+    dtype for it (the int8 codes int8, the recurrent states and int8
+    scales float32, the rest the config's dtype), ``pos`` an int32 scalar
+    tensor."""
     from .models.transformer import _dtype
 
     dt = _dtype(cfg)
 
-    def leaf(a):
+    def leaf(a, key):
         if isinstance(a, tuple):
-            return tuple(leaf(x) for x in a)
-        return torch.from_numpy(np.array(a, np.float32)).to(dt)
+            return tuple(leaf(x, key) for x in a)
+        if isinstance(a, dict):
+            return {k: leaf(v, k) for k, v in a.items()}
+        if key in _INT8_LEAVES:
+            return torch.from_numpy(np.array(a, np.int8))
+        t = torch.from_numpy(np.array(a, np.float32))
+        return t if key in _F32_LEAVES else t.to(dt)
 
     return {k: (torch.tensor(int(np.asarray(v)), dtype=torch.int32)
-                if k == "pos" else leaf(v)) for k, v in cache.items()}
+                if k == "pos" else leaf(v, k)) for k, v in cache.items()}
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:
-    """The port's decode cache as numpy, in the reference's layout
-    (bfloat16 leaves as float32)."""
+    """A copy of the port's decode cache as numpy, in the reference's
+    layout (bfloat16 leaves as float32, int8 codes as int8): decode updates
+    the cache in place, so the arrays never share its memory."""
     def leaf(t):
-        return tuple(leaf(x) for x in t) if isinstance(t, tuple) \
-            else _np_float(t)
+        if isinstance(t, tuple):
+            return tuple(leaf(x) for x in t)
+        if isinstance(t, dict):
+            return {k: leaf(v) for k, v in t.items()}
+        return np.array(_np_float(t) if t.is_floating_point()
+                        else t.detach().cpu().numpy())
 
     return {k: leaf(v) for k, v in cache.items()}
 

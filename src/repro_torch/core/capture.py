@@ -93,12 +93,14 @@ def collection_paused():
 
 
 def tree_map(fn, obj):
-    """``fn`` on every tensor of nested tuples, lists and dataclasses;
-    other leaves (None, ints) stay as they are."""
+    """``fn`` on every tensor of nested tuples, lists, dicts (in their key
+    order) and dataclasses; other leaves (None, ints) stay as they are."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if isinstance(obj, (tuple, list)):
         return type(obj)(tree_map(fn, x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, v) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: tree_map(fn, getattr(obj, f.name))

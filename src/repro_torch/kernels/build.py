@@ -38,6 +38,7 @@ SIGNATURES = {
     "delta_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "packed_hamming_batched": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sign_project": (_P, _P, _P, _I, _I, _I, _P),
+    "int8_dot": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

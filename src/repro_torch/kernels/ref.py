@@ -106,6 +106,28 @@ def sign_project_pack_ref(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return hdc.pack_bits(sign_project_ref(z, R))
 
 
+def _int8_einsum(spec: str, a: torch.Tensor, c: torch.Tensor):
+    """``einsum(spec)`` of int8 codes, exact: int32 on the CPU (as the
+    reference's ``astype(int32)`` einsum), float64 products elsewhere
+    (exact below 2^53; CUDA has no integer einsum)."""
+    wide = torch.int32 if a.device.type == "cpu" else torch.float64
+    return torch.einsum(spec, a.to(wide), c.to(wide)).to(torch.int32)
+
+
+def int8_dot_rows_ref(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """int32 [B, Hk, G, S] = sum_k a[b,h,g,k] * c[b,s,h,k] over the first
+    K = a.shape[-1] codes of each row of ``c`` [B, S, Hk, L >= K] —
+    ``int8_dot.rows``."""
+    return _int8_einsum("bhgk,bshk->bhgs", a, c[..., :a.shape[-1]])
+
+
+def int8_dot_cols_ref(p: torch.Tensor, c: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """int32 [B, Hk, G, k] = sum_s p[b,h,g,s] * c[b,s,h,:k] —
+    ``int8_dot.cols``."""
+    return _int8_einsum("bhgs,bshk->bhgk", p, c[..., :k])
+
+
 def sign_disagreement(z: torch.Tensor, R: torch.Tensor,
                       codes_a: torch.Tensor, codes_b: torch.Tensor) -> dict:
     """The agreement rule for two computations of sign(z @ R.T) as bipolar

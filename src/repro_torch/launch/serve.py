@@ -9,6 +9,8 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         musicgen-large --smoke --batch 2 --prompt-len 16 --gen 8 \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --batch 2 --prompt-len 16 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --torr-streams 8 \\
         --torr-frames 30
     # async dispatch/collect runtime with RT-60 deadline admission control
@@ -114,8 +116,16 @@ models skip it, as the reference does. On the card the decode step is
 replayed from a CUDA graph (``core.capture.GraphFamily``, keyed by the
 config, the batch and the cache length), captured at the first step: the
 counterpart of the reference's ``jax.jit``. Each replay copies the cache
-into the graph's buffers and clones it out. The recurrent families and
-``serve_quant="int8"`` are not ported yet (ROADMAP Queue 1).
+into the graph's buffers and clones it out (every leaf of the nested
+recurrent caches too; at xlstm-1.3b's full config and batch 4 its 42
+mLSTM states C hold 2.82 GB). Every family of the registry serves: the
+hybrid (``recurrentgemma-2b``: RG-LRU with a local-attention ring of
+``sliding_window`` slots, which ``s_max`` does not size) and the ssm
+(``xlstm-1.3b``: mLSTM and sLSTM; a prompt longer than ``mlstm_chunk``
+must be a whole number of chunks) included. ``prefill`` under
+``serve_quant="int8"`` returns the float cache as the reference's does,
+so the launcher's decode there takes the float path; the int8 decode
+starts from ``transformer.init_cache``.
 
 One card: ``--mesh`` takes 0 or 1 (``repro`` shards the stream slots over
 more devices; the port serves one).

@@ -13,13 +13,18 @@ product even in a float32 model, and the product's result is bfloat16
 ``jnp.einsum`` does) before it is cast to float32 and scaled; the
 probabilities are cast to v's dtype before the value product.
 
-The int8-quantized cache (``serve_quant="int8"``) is not ported yet
-(ROADMAP Queue 1): a dict cache raises ``NotImplementedError``.
+The int8-quantized cache (``serve_quant="int8"``, a dict
+``{"kq", "ks", "vq", "vs"}``: int8 codes with per-position-per-head float32
+scales) is read as the reference reads it: q and the probabilities are
+quantized by :func:`_quant_rows`, the products run on the codes in int32
+(``kernels/int8_dot.py``: the ``int8_dot`` kernel on the card, an int32
+einsum on the CPU) and the scales fold in after the product.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels import int8_dot
 from .config import ModelConfig
 from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs, \
     softcap
@@ -130,25 +135,33 @@ def _self_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, pos0: int):
     return o @ p.wo, (k, v)
 
 
-def _no_int8(cache, what: str):
-    if isinstance(cache, dict):
-        raise NotImplementedError(
-            f"{what}: the int8 cache (serve_quant='int8') is not ported "
-            "yet (ROADMAP Queue 1)")
+def _quant_rows(x: torch.Tensor, dim: int = -1):
+    """Symmetric int8 quantization along ``dim`` with float32 scales:
+    scale = max|x| / 127 + 1e-12, codes round(x / scale) (half to even, as
+    ``jnp.round``) clipped to +-127. The 127 is a float32 tensor on x's
+    device: CUDA computes a division by a Python float as a product by its
+    reciprocal, which can round a scale an ulp away."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=dim, keepdim=True)
+    scale = amax / torch.full((), 127.0, dtype=torch.float32,
+                              device=x.device) + 1e-12
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(dim)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
                 cfg: ModelConfig, ring: bool = False):
-    """One-token decode. x: [B,1,d]; cache: (k, v) [B,Smax,Hkv,dh], written
-    in place at the token's slot and returned; pos: int32 [] on x's device.
+    """One-token decode. x: [B,1,d]; cache: (k, v) [B,Smax,Hkv,dh], or the
+    int8 dict {"kq","ks","vq","vs"} ([B,Smax,Hkv,dh] codes, [B,Smax,Hkv]
+    scales), written in place at the token's slot and returned; pos: int32
+    [] on x's device.
 
     ``ring``: cache is a sliding-window ring buffer (local attention); the
     write index is pos % Smax and positions are reconstructed for masking.
     """
-    _no_int8(cache, "attn_decode")
     B = x.shape[0]
-    k_cache, v_cache = cache
-    S_max = k_cache.shape[1]
+    quant = isinstance(cache, dict)
+    S_max = (cache["kq"] if quant else cache[0]).shape[1]
     q, k_new, v_new = _qkv(p, x, cfg)
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, pos[None])
     q = apply_rope(q, cos, sin)
@@ -156,13 +169,23 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
     slot = (torch.remainder(pos, S_max) if ring
             else torch.clamp(pos, max=S_max - 1))
     index = slot.reshape(1).long()
-    k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
 
     qg = _grouped(q, cfg)[:, 0]                       # [B,Hkv,G,dh]
     scale = cfg.head_dim ** -0.5
-    s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
-                     k_cache.to(BF16)).float() * scale
+    if quant:
+        for name, t in zip(("kq", "ks", "vq", "vs"),
+                           (*_quant_rows(k_new), *_quant_rows(v_new))):
+            cache[name].index_copy_(1, index, t)
+        qq, qs = _quant_rows(qg)                      # [B,Hkv,G,dh],[B,Hkv,G]
+        s_i32 = int8_dot.rows(qq, cache["kq"])
+        s = (s_i32.float() * qs[..., None]
+             * cache["ks"].transpose(1, 2)[:, :, None, :]) * scale
+    else:
+        k_cache, v_cache = cache
+        k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
+        s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
+                         k_cache.to(BF16)).float() * scale
     s = softcap(s, cfg.attn_logit_softcap)
     kpos = torch.arange(S_max, device=x.device)
     if ring:
@@ -178,10 +201,16 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
         if cfg.sliding_window is not None:
             keep &= kpos > pos - cfg.sliding_window
     s = torch.where(keep[None, None, None, :], s, NEG_INF)
-    pr = _softmax(s).to(v_cache.dtype)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, v_cache)
+    if quant:
+        pr = _softmax(s) * cache["vs"].transpose(1, 2)[:, :, None, :]
+        pq, ps = _quant_rows(pr)                      # [B,Hkv,G,S]
+        o_i32 = int8_dot.cols(pq, cache["vq"])
+        o = (o_i32.float() * ps[..., None]).to(x.dtype)
+    else:
+        pr = _softmax(s).to(cache[1].dtype)
+        o = torch.einsum("bhgs,bshd->bhgd", pr, cache[1])
     o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return o @ p.wo, (k_cache, v_cache)
+    return o @ p.wo, cache
 
 
 # ---------------------------------------------------------------------------

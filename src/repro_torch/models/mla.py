@@ -15,14 +15,20 @@ the nope and rope products are each rounded to bfloat16 and then summed in
 float32, as the reference computes ``(a + b).astype(f32)`` of two bfloat16
 products once XLA has compiled it (the add is folded into the cast that
 follows it, so the sum is not rounded to bfloat16).
-The int8 latent cache (``serve_quant="int8"``) is not ported yet (ROADMAP
-Queue 1): a dict cache raises ``NotImplementedError``.
+The int8 latent cache (``serve_quant="int8"``: a dict ``{"q": int8
+[B,S,r+dr], "s": float32 [B,S]}``) is read as the reference reads it: the
+small side (the absorbed query, the scale-folded probabilities) is
+quantized per row, the products run on the codes in int32 (the
+``int8_dot`` kernel on the card: the scores as ``rows`` with one head
+group, the values as ``cols`` over the first r codes of each row) and the
+scales fold in after the product.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import BF16, NEG_INF, _no_int8, _softmax
+from ..kernels import int8_dot
+from .attention import BF16, NEG_INF, _quant_rows, _softmax
 from .config import ModelConfig
 from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs
 
@@ -121,11 +127,23 @@ def mla_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return out, torch.cat([c, k_rope], dim=-1)
 
 
-def mla_decode(p: Params, x: torch.Tensor, cache: torch.Tensor,
-               pos: torch.Tensor, cfg: ModelConfig):
-    """Absorbed one-token decode against the latent cache [B, S_max, r+dr],
-    written in place at the token's slot and returned."""
-    _no_int8(cache, "mla_decode")
+def _int8_dot(a_f: torch.Tensor, c_q: torch.Tensor, k: int | None = None):
+    """Quantize the small side a_f [B, H, *] and contract it with the int8
+    latent cache c_q [B, S, r+dr]: the scores ``bhr,bsr->bhs`` (``k``
+    None) or the values ``bhs,bsr->bhr`` over the first ``k`` codes of each
+    row. Returns (the int32 product, a_f's scales [B, H])."""
+    a_q, a_s = _quant_rows(a_f)
+    c4 = c_q[:, :, None]                                   # [B, S, 1, r+dr]
+    out = (int8_dot.rows(a_q[:, None], c4) if k is None
+           else int8_dot.cols(a_q[:, None], c4, k))
+    return out[:, 0], a_s
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
+               cfg: ModelConfig):
+    """Absorbed one-token decode against the latent cache [B, S_max, r+dr]
+    (or its int8 dict), written in place at the token's slot and
+    returned."""
     B = x.shape[0]
     H, dn, dr, dv, r = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                         cfg.v_head_dim, cfg.kv_lora_rank)
@@ -134,23 +152,39 @@ def mla_decode(p: Params, x: torch.Tensor, cache: torch.Tensor,
     q_rope = apply_rope(q_rope, cos, sin)
     c_new, k_rope_new = _latent(p, x, cfg, pos[None])
     new_entry = torch.cat([c_new, k_rope_new.reshape(B, 1, dr)], dim=-1)
-    S_max = cache.shape[1]
-    slot = torch.clamp(pos, max=S_max - 1)
-    cache.index_copy_(1, slot.reshape(1).long(), new_entry.to(cache.dtype))
+    quant = isinstance(cache, dict)
+    S_max = (cache["q"] if quant else cache).shape[1]
+    slot = torch.clamp(pos, max=S_max - 1).reshape(1).long()
 
     wk_b = p.wk_b.reshape(r, H, dn)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b)   # absorb W_UK
     scale = (dn + dr) ** -0.5
     keep = torch.arange(S_max, device=x.device) <= pos
 
-    c_all = cache[..., :r]
-    k_rope_all = cache[..., r:]
-    s = (torch.einsum("bhr,bsr->bhs", q_lat.to(BF16), c_all.to(BF16)).float()
-         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(BF16),
-                        k_rope_all.to(BF16)).float()) * scale
-    s = torch.where(keep[None, None, :], s, NEG_INF)
-    pr = _softmax(s).to(c_all.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", pr, c_all)       # attend over latents
+    if quant:
+        eq, es = _quant_rows(new_entry)                    # [B,1,*], [B,1]
+        cache["q"].index_copy_(1, slot, eq)
+        cache["s"].index_copy_(1, slot, es)
+        q_full = torch.cat([q_lat, q_rope[:, 0]], dim=-1)  # [B,H,r+dr]
+        s_i32, q_s = _int8_dot(q_full, cache["q"])
+        s = (s_i32.float() * q_s[..., None]
+             * cache["s"][:, None, :]) * scale
+        s = torch.where(keep[None, None, :], s, NEG_INF)
+        pr = _softmax(s)                                   # f32 [B,H,S]
+        pr_scaled = pr * cache["s"][:, None, :]            # fold cache scales
+        o_i32, p_s = _int8_dot(pr_scaled, cache["q"], r)
+        o_lat = o_i32.float() * p_s[..., None]
+    else:
+        cache.index_copy_(1, slot, new_entry.to(cache.dtype))
+        c_all = cache[..., :r]
+        k_rope_all = cache[..., r:]
+        s = (torch.einsum("bhr,bsr->bhs", q_lat.to(BF16),
+                          c_all.to(BF16)).float()
+             + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(BF16),
+                            k_rope_all.to(BF16)).float()) * scale
+        s = torch.where(keep[None, None, :], s, NEG_INF)
+        pr = _softmax(s).to(c_all.dtype)
+        o_lat = torch.einsum("bhs,bsr->bhr", pr, c_all)   # attend over latents
 
     wv_b = p.wv_b.reshape(r, H, dv)
     o = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), wv_b)  # absorb W_UV

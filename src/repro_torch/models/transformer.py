@@ -1,5 +1,6 @@
-"""Model assembly for the dense, audio, VLM and MoE families (port of the
-serving half of ``repro.models.transformer``).
+"""Model assembly for every family of the registry: dense, audio, VLM, MoE,
+hybrid (RecurrentGemma) and ssm (xLSTM) (port of the serving half of
+``repro.models.transformer``).
 
 The reference stacks each pattern position's weights along a group axis and
 applies the groups with ``lax.scan``; here every layer is a module of its
@@ -25,9 +26,20 @@ vision [B,Nv,vision_dim]. ``decode_step`` updates ``cache`` in place
 (every leaf, ``pos`` included, stays at its address) and returns it; it
 reads nothing on the host, so a CUDA graph can capture it.
 
-Not ported yet (ROADMAP Queue 1): the hybrid and ssm families
-(``models/recurrent.py``), the int8 cache (``serve_quant="int8"``),
-``forward_train`` and its chunked loss (the training slice).
+The hybrid family's local attention keeps a ring cache of
+``sliding_window`` slots (prefill writes the prompt's last rows into slot
+pos % W, :func:`_to_ring`) and its RG-LRU layers ``cache["rec"]``; the ssm
+family keeps ``cache["mlstm"]`` and ``cache["slstm"]`` (nested dicts of
+stacked leaves, the recurrent states in float32). Under
+``serve_quant="int8"`` :func:`init_cache` builds the reference's int8 KV
+and latent caches (``{"kq", "ks", "vq", "vs"}``, ``{"q", "s"}``) and
+decode contracts them with the ``int8_dot`` kernel
+(``models/attention.py``, ``models/mla.py``); :func:`prefill` returns a
+float cache there, as the reference's does (its ``_rebuild_cache``
+replaces the int8 dicts), so int8 decode starts from :func:`init_cache`.
+
+Not ported yet (ROADMAP Queue 1): ``forward_train`` and its chunked loss
+(the training slice).
 """
 from __future__ import annotations
 
@@ -38,25 +50,15 @@ from ..device import resolve_device
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import recurrent as rec
 from .config import ModelConfig
 from .layers import Params, dense_init, gated_mlp, rmsnorm
 
-PORTED_FAMILIES = ("dense", "audio", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (models/recurrent.py) is "
-            "not ported yet (ROADMAP Queue 1)")
-    if cfg.serve_quant == "int8":
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 cache (serve_quant='int8') is not ported "
-            "yet (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +125,20 @@ def _init_position(kind: str, cfg: ModelConfig, dt, gen, dev) -> Params:
                       attn=mla_mod.init_mla_params(cfg, dt, gen, dev),
                       ln2=zeros(d),
                       moe=moe_mod.init_moe_params(cfg, dt, gen, dev))
+    if kind == "local_attn":
+        return Params(ln1=zeros(d), attn=attn.init_attn_params(
+            cfg, dt, generator=gen, device=dev), ln2=zeros(d),
+            mlp=_init_mlp(cfg, dt, gen, dev))
+    if kind == "rglru":
+        return Params(ln1=zeros(d),
+                      rec=rec.init_rglru_params(cfg, dt, gen, dev),
+                      ln2=zeros(d), mlp=_init_mlp(cfg, dt, gen, dev))
+    if kind == "mlstm":
+        return Params(ln1=zeros(d),
+                      cell=rec.init_mlstm_params(cfg, dt, gen, dev))
+    if kind == "slstm":
+        return Params(ln1=zeros(d),
+                      cell=rec.init_slstm_params(cfg, dt, gen, dev))
     raise ValueError(kind)
 
 
@@ -133,7 +149,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     default one when None). Norm scales and the VLM gate start at zero, as
     in the reference. On ``meta`` every tensor has its shape and dtype and
     nothing is allocated, so a full config builds anywhere."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     n_groups, pattern = group_layout(cfg)
@@ -199,25 +214,45 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None) -> dict:
-    """Per-group stacked decode state in the reference's layout."""
-    _check_ported(cfg)
-    dev = resolve_device(device)
+    """Per-group stacked decode state in the reference's layout; under
+    ``serve_quant="int8"`` the dense, audio and MoE caches are the int8
+    dicts."""
+    return _init_cache(cfg, B, S_max, resolve_device(device),
+                       cfg.serve_quant == "int8")
+
+
+def _init_cache(cfg: ModelConfig, B: int, S_max: int, dev,
+                quant: bool) -> dict:
     dt = _dtype(cfg)
     n_groups, pattern = group_layout(cfg)
     Hkv, dh = cfg.n_kv_heads, cfg.head_dim
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(G):
+        S = S_max
+        if quant:
+            return {"kq": zeros(G, B, S, Hkv, dh, dtype=torch.int8),
+                    "ks": zeros(G, B, S, Hkv, dtype=torch.float32),
+                    "vq": zeros(G, B, S, Hkv, dh, dtype=torch.int8),
+                    "vs": zeros(G, B, S, Hkv, dtype=torch.float32)}
+        return zeros(G, B, S, Hkv, dh), zeros(G, B, S, Hkv, dh)
+
+    def ckv(G):
+        if quant:
+            return {"q": zeros(G, B, S_max, cfg.mla_cache_dim,
+                               dtype=torch.int8),
+                    "s": zeros(G, B, S_max, dtype=torch.float32)}
+        return zeros(G, B, S_max, cfg.mla_cache_dim)
 
     cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.family in ("dense", "audio"):
-        cache["kv"] = (zeros(n_groups, B, S_max, Hkv, dh),
-                       zeros(n_groups, B, S_max, Hkv, dh))
+        cache["kv"] = kv(n_groups)
     elif cfg.family == "moe":
-        cache["ckv"] = zeros(n_groups, B, S_max, cfg.mla_cache_dim)
+        cache["ckv"] = ckv(n_groups)
         if cfg.first_k_dense:
-            cache["ckv_prefix"] = zeros(cfg.first_k_dense, B, S_max,
-                                        cfg.mla_cache_dim)
+            cache["ckv_prefix"] = ckv(cfg.first_k_dense)
     elif cfg.family == "vlm":
         n_self = len(pattern) - 1
         cache["kv"] = (zeros(n_groups, n_self, B, S_max, Hkv, dh),
@@ -225,19 +260,64 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None) -> dict:
         Nv = cfg.n_vision_tokens
         cache["cross_kv"] = (zeros(n_groups, B, Nv, Hkv, dh),
                              zeros(n_groups, B, Nv, Hkv, dh))
+    elif cfg.family == "hybrid":
+        W = min(cfg.sliding_window or S_max, S_max)
+        n_rec = pattern.count("rglru")
+        w = cfg.lru_width
+        cache["rec"] = {
+            "h": zeros(n_groups, n_rec, B, w, dtype=torch.float32),
+            "conv": zeros(n_groups, n_rec, B, cfg.conv_width - 1, w)}
+        cache["kv"] = (zeros(n_groups, B, W, Hkv, dh),
+                       zeros(n_groups, B, W, Hkv, dh))
+    elif cfg.family == "ssm":
+        din = int(cfg.d_model * cfg.mlstm_proj_factor)
+        H = cfg.n_heads
+        n_m = len(pattern) - 1
+        f32 = torch.float32
+        cache["mlstm"] = {
+            "C": zeros(n_groups, n_m, B, H, din // H, din // H, dtype=f32),
+            "n": zeros(n_groups, n_m, B, H, din // H, dtype=f32),
+            "m": torch.full((n_groups, n_m, B, H), -1e30, dtype=f32,
+                            device=dev),
+            "conv": zeros(n_groups, n_m, B, cfg.conv_width - 1, din)}
+        d = cfg.d_model
+        cache["slstm"] = {
+            "c": zeros(n_groups, B, d, dtype=f32),
+            "n": zeros(n_groups, B, d, dtype=f32),
+            "h": zeros(n_groups, B, d, dtype=f32),
+            "m": torch.full((n_groups, B, H), -1e30, dtype=f32, device=dev)}
     return cache
+
+
+def _index(tree, *idx):
+    """The views ``t[idx]`` of every tensor of a tuple or dict of them (a
+    layer's slice of a stacked cache)."""
+    if isinstance(tree, dict):
+        return {k: t[idx] for k, t in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(t[idx] for t in tree)
+    return tree[idx]
 
 
 def _layer_cache(cache: dict, cfg: ModelConfig, g: int, i: int, kind: str):
     """The views of ``cache`` that layer (group g, position i) reads and
     writes."""
     if cfg.family in ("dense", "audio"):
-        return cache["kv"][0][g], cache["kv"][1][g]
+        return _index(cache["kv"], g)
     if cfg.family == "moe":
-        return cache["ckv"][g]
+        return _index(cache["ckv"], g)
+    if cfg.family == "hybrid":
+        if kind == "rglru":
+            _, pattern = group_layout(cfg)
+            return _index(cache["rec"], g, pattern[:i].count("rglru"))
+        return _index(cache["kv"], g)
+    if cfg.family == "ssm":
+        if kind == "mlstm":
+            return _index(cache["mlstm"], g, i)
+        return _index(cache["slstm"], g)
     if kind == "cross":
-        return cache["cross_kv"][0][g], cache["cross_kv"][1][g]
-    return cache["kv"][0][g, i], cache["kv"][1][g, i]
+        return _index(cache["cross_kv"], g)
+    return _index(cache["kv"], g, i)
 
 
 # ---------------------------------------------------------------------------
@@ -248,11 +328,12 @@ def _apply_position_decode(p: Params, kind: str, x, pcache, pos,
                            cfg: ModelConfig):
     """x: [B,1,d]; the layer's cache is updated in place. Returns x'."""
     h = rmsnorm(x, p.ln1, cfg.rmsnorm_eps)
-    if kind == "self":
+    if kind in ("self", "local_attn"):
         if cfg.attn_kind == "mla":
             o, _ = mla_mod.mla_decode(p.attn, h, pcache, pos, cfg)
         else:
-            o, _ = attn.attn_decode(p.attn, h, pcache, pos, cfg)
+            o, _ = attn.attn_decode(p.attn, h, pcache, pos, cfg,
+                                    ring=kind == "local_attn")
         x = x + o
     elif kind == "cross":
         o = attn.cross_attn_decode(p.attn, h, pcache, cfg)
@@ -263,6 +344,12 @@ def _apply_position_decode(p: Params, kind: str, x, pcache, pos,
         y, _ = moe_mod.moe_ffn(p.moe, rmsnorm(x, p.ln2, cfg.rmsnorm_eps),
                                cfg)
         return x + y
+    elif kind == "rglru":
+        x = x + rec.rglru_decode(p.rec, h, pcache, cfg)[0]
+    elif kind == "mlstm":
+        return x + rec.mlstm_decode(p.cell, h, pcache, cfg)[0]
+    elif kind == "slstm":
+        return x + rec.slstm_decode(p.cell, h, pcache, cfg)[0]
     else:
         raise ValueError(kind)
     h2 = rmsnorm(x, p.ln2, cfg.rmsnorm_eps)
@@ -275,7 +362,6 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig, return_hidden: bool = False):
     """One decode step for a batch. tokens: [B] (audio [B, ncb]) on the
     cache's device. ``cache`` is updated in place and returned."""
-    _check_ported(cfg)
     pos = cache["pos"]
     toks = tokens[:, None] if tokens.ndim == 1 else tokens[:, None, :]
     x = _embed_tokens(params, {"tokens": toks}, cfg)
@@ -283,8 +369,8 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
 
     for j, p in enumerate(params.dense_prefix
                           if "dense_prefix" in params else ()):
-        x = _apply_position_decode(p, "self", x, cache["ckv_prefix"][j], pos,
-                                   cfg)
+        x = _apply_position_decode(p, "self", x,
+                                   _index(cache["ckv_prefix"], j), pos, cfg)
     for g, group in enumerate(params.groups):
         for i, kind in enumerate(pattern):
             x = _apply_position_decode(group[f"{kind}_{i}"], kind, x,
@@ -307,7 +393,7 @@ def _apply_position_prefill(p: Params, kind: str, x, cfg: ModelConfig,
                             vision):
     """Returns (x', the layer's decode state)."""
     h = rmsnorm(x, p.ln1, cfg.rmsnorm_eps)
-    if kind == "self":
+    if kind in ("self", "local_attn"):
         if cfg.attn_kind == "mla":
             o, new = mla_mod.mla_prefill(p.attn, h, cfg)
         else:
@@ -323,6 +409,15 @@ def _apply_position_prefill(p: Params, kind: str, x, cfg: ModelConfig,
         y, _ = moe_mod.moe_ffn(p.moe, rmsnorm(x, p.ln2, cfg.rmsnorm_eps),
                                cfg)
         return x + y, new
+    elif kind == "rglru":
+        y, new = rec.rglru_prefill(p.rec, h, cfg)
+        x = x + y
+    elif kind == "mlstm":
+        y, new = rec.mlstm_prefill(p.cell, h, cfg)
+        return x + y, new
+    elif kind == "slstm":
+        y, new = rec.slstm_prefill(p.cell, h, cfg)
+        return x + y, new
     else:
         raise ValueError(kind)
     h2 = rmsnorm(x, p.ln2, cfg.rmsnorm_eps)
@@ -330,14 +425,31 @@ def _apply_position_prefill(p: Params, kind: str, x, cfg: ModelConfig,
                          cfg.activation), new
 
 
+def _to_ring(dst: torch.Tensor, kv: torch.Tensor) -> None:
+    """The last min(S, W) rows of ``kv`` [B, S, Hkv, dh] into the ring
+    ``dst`` [B, W, Hkv, dh], the row of absolute position p at slot p % W
+    (where ``attn_decode(ring=True)`` writes it); the other slots stay
+    zero."""
+    S, W = kv.shape[1], dst.shape[1]
+    n = min(S, W)
+    slots = torch.arange(S - n, S, device=kv.device) % W
+    dst[:, slots] = kv[:, S - n:].to(dst.dtype)
+
+
 def _store(dst, new, S: int, kind: str) -> None:
     """A layer's prefill state into its cache slice: the first S rows of a
-    self-attention or latent cache, the whole cross KV."""
+    self-attention or latent cache, the ring of a local attention, the
+    whole cross KV and recurrent state."""
     if isinstance(dst, tuple):
         for d, n in zip(dst, new):
             _store(d, n, S, kind)
+    elif isinstance(dst, dict):
+        for k, d in dst.items():
+            d.copy_(new[k])
     elif kind == "cross":
         dst.copy_(new)
+    elif kind == "local_attn":
+        _to_ring(dst, new)
     else:
         dst[:, :S] = new
 
@@ -348,20 +460,26 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
     """Process a full prompt; returns (cache, last-position logits).
 
     ``s_max``: decode-cache capacity (>= prompt length); defaults to the
-    prompt length + 64 so generation can continue after prefill. The VLM's
-    cross KV (``cross_attn_kv`` of the vision embeddings) is stored in
-    ``cache["cross_kv"]`` for decode (the reference leaves it zero: ROADMAP
-    Queue 3)."""
-    _check_ported(cfg)
+    prompt length + 64 so generation can continue after prefill. The hybrid
+    family ignores it, as the reference does: its local attention's ring
+    holds W = ``sliding_window or S`` slots. Under ``serve_quant="int8"``
+    the cache is the float one (the reference's prefill returns it so).
+    The VLM's cross KV (``cross_attn_kv`` of the vision embeddings) is
+    stored in ``cache["cross_kv"]`` for decode (the reference leaves it
+    zero: ROADMAP Queue 3)."""
     tokens = batch["tokens"]
     B, S = tokens.shape[:2]
     x = _embed_tokens(params, batch, cfg)
     vision = batch.get("vision")
     _, pattern = group_layout(cfg)
-    cache_S = s_max if s_max is not None else S + 64
-    if cache_S < S:
-        raise ValueError(f"s_max {cache_S} is below the prompt length {S}")
-    cache = init_cache(cfg, B, cache_S, device=x.device)
+    if cfg.family == "hybrid":
+        cache_S = cfg.sliding_window or S
+    else:
+        cache_S = s_max if s_max is not None else S + 64
+        if cache_S < S:
+            raise ValueError(f"s_max {cache_S} is below the prompt length "
+                             f"{S}")
+    cache = _init_cache(cfg, B, cache_S, x.device, quant=False)
 
     for j, p in enumerate(params.dense_prefix
                           if "dense_prefix" in params else ()):

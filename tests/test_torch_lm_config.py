@@ -37,7 +37,7 @@ def test_registry_lists_the_same_architectures_and_shapes():
     assert list(tconfigs.ARCHS) == list(jconfigs.ARCHS)
     assert tconfigs.SHAPES == jconfigs.SHAPES
     assert tconfigs.registry.SUBQUADRATIC == jconfigs.registry.SUBQUADRATIC
-    assert len(PORTED) == 8
+    assert len(PORTED) == 10
 
 
 @pytest.mark.parametrize("name", ARCHS)
