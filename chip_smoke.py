@@ -225,6 +225,31 @@ bit:
      16; (f) ``python -m repro_torch.launch.serve --arch xlstm-1.3b
      --batch 2 --prompt-len 16 --gen 8`` prints ``generated shape (2,
      8)``.
+ 17. LM training (run after 16, before 10, under phase 15's GEMM flags;
+     its tensors freed before phase 10): (a) ``runtime.steps.
+     make_train_step`` at deepseek-7b's published widths (d_model 4096,
+     32 heads, d_ff 11008, vocab 102400), 4 of its 30 layers (AdamW's
+     state for 30 does not fit in 80 GB), bf16, remat "nothing", 20 steps
+     of 4 x 2048 ``TokenStream`` tokens: ms/step (CUDA events, median and
+     spread of the steps after the first), tokens/s, MFU (6 N tokens for
+     the parameters in products plus the attention as the port computes
+     it, against 989 TFLOP/s bf16 dense), peak ``memory_allocated``, the
+     host ms of ``batch_at``, the loss of the first and last 5 steps,
+     which must fall; (b) the same widths cut to one layer in float32,
+     1 x 128 tokens: the card's loss, grad norm and every gradient leaf
+     against the port's CPU run; (c) the seven smoke configs (gemma-7b,
+     deepseek-7b, musicgen-large, llama-3.2-vision-90b, deepseek-v3-671b
+     with MTP, recurrentgemma-2b, xlstm-1.3b), the card's loss, metrics
+     and gradients against the CPU's: float32 with float32 and with
+     bfloat16 score products, and bfloat16; (d) ``TrainSupervisor`` at
+     gemma-7b's smoke config under ``torch.use_deterministic_algorithms``
+     with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: a fault at step 23 ends
+     in the clean run's parameters and moments bit for bit (an op with
+     no deterministic CUDA version would be named and the tolerance
+     stated), then ``python -m repro_torch.launch.train --arch gemma-7b
+     --smoke --steps 40`` in a subprocess prints "loss improved". The
+     rules are the constants above ``phase_train``. Training launches
+     none of the hand-written kernels (``phase17_launches``, all 0).
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
@@ -233,8 +258,9 @@ Each phase's seconds are logged as ``[phase]`` lines. The plan-ladder
 rows (captured and eager ms/step, windows/s, idle share), the async vs
 sync rows, the supervised, gateway, front-end, LM and recurrent/int8 rows
 and the per-kernel report (with each kernel's ``front_end_launches`` from
-phase 14, ``lm_launches`` from phase 15 and ``phase16_launches`` from
-phase 16; ``int8_dot``'s ``launches`` are phase 16 (d)'s) are printed as
+phase 14, ``lm_launches`` from phase 15, ``phase16_launches`` from
+phase 16 and ``phase17_launches`` from phase 17; ``int8_dot``'s
+``launches`` are phase 16 (d)'s) and the training rows are printed as
 JSON before the last line, which is
 ``{"ok": true, "device": {...}}``.
 """
@@ -262,6 +288,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_TF32_S = 495e12        # dense, on the tensor cores
 PEAK_INT8_S = 1979e12       # dense int8 TOP/s, on the tensor cores
+PEAK_BF16_S = 989e12        # dense bf16 FLOP/s, on the tensor cores
 # 1-bit products on the tensor cores (b1 .and.popc), counted as int8 ops
 # are, 64 a 32-bit word pair: the data sheet gives no rate; 8x the int8
 # peak, which wgmma b1 reaches on an H100 (perf/mma_probe.py: 248.2 T word
@@ -4088,6 +4115,499 @@ def _with_scores(dtype, names, S):
         return _lm_card_vs_cpu_at(dtype, names, S, tag="(c) [recurrent]")
 
 
+# phase 17: LM training. (a) deepseek-7b (src/repro/configs/registry.py, the
+# training launcher's default --arch) at its published widths, depth cut
+# from 30 to 4 layers (AdamW's state for 30 does not fit in 80 GB)
+TRAIN_ARCH, TRAIN_LAYERS = "deepseek-7b", 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=4, total_steps=TRAIN_STEPS)
+# (b): the same widths cut to one layer, float32, 1 x 128 tokens
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 1, 128
+# (c): every family's smoke config (MoE with MTP: deepseek-v3)
+TRAIN_SMOKE = ("gemma-7b", "deepseek-7b", "musicgen-large",
+               "llama-3.2-vision-90b", "deepseek-v3-671b",
+               "recurrentgemma-2b", "xlstm-1.3b")
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 64
+# card against CPU, float32 models: with float32 score products, the
+# loss rtol 1e-5 and every gradient leaf within 1e-4 of its largest
+# magnitude (tests/test_torch_train.py's rule against the reference); with
+# the model's bfloat16 score products, whose backward rounds each score
+# gradient to bfloat16 (where the card's and the CPU's float32 inputs
+# round apart, it moves by an ulp, 2^-8), the loss rtol 1e-5 and every
+# leaf within two bfloat16 ulps, 2^-7, of its largest magnitude (an
+# H100 run measured 1.9e-3 in (b) and 2.3e-3 at gemma-7b's smoke ln1 in
+# (c))
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_F32_OF_MAX = 1e-4
+TRAIN_BF16_SCORES_OF_MAX = 2.0 ** -7
+# bfloat16 models, card against CPU (two eager runs whose GEMMs sum in
+# different orders and round each output to bfloat16): the loss rtol 5e-4,
+# every gradient leaf within 4e-2 of its norm (an H100 run measured a
+# worst of 4.8e-5 in the loss, at deepseek-v3's smoke, and 1.2e-2 in a
+# leaf, at xlstm's; the rules are about 10x and 3x those)
+TRAIN_BF16_LOSS_RTOL = 5e-4
+TRAIN_BF16_OF_NORM = 4e-2
+# (d): the supervisor at gemma-7b's smoke config, a fault at step 23
+TRAIN_SUP_ARCH, TRAIN_SUP_STEPS, TRAIN_SUP_FAULT = "gemma-7b", 40, 23
+TRAIN_SUP_EVERY = 10
+
+
+def _flat_grads_close(label, got: dict, want: dict, of_max=None,
+                      of_norm=None) -> float:
+    """Every leaf of ``got`` (on the card) against ``want`` (the CPU's):
+    |got - want| <= of_max * max|want|, or ||got - want|| <= of_norm *
+    ||want||. Returns the worst ratio."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].detach().cpu().float()
+        w = w.detach().float()
+        if of_max is not None:
+            scale, err, bound = float(w.abs().max()), \
+                float((g - w).abs().max()), of_max
+        else:
+            scale, err, bound = float(w.norm()), float((g - w).norm()), \
+                of_norm
+        ratio = err / scale if scale else err
+        worst = max(worst, ratio)
+        if not err <= bound * scale:
+            raise AssertionError(f"train: {label} {k}: {err:.3e} against "
+                                 f"{bound:g} x {scale:.3e}")
+    return worst
+
+
+def _train_flops(cfg, params) -> tuple[float, int]:
+    """(model FLOPs of one step, N): 6 N tokens for the N parameters that
+    enter a product (all but the input embedding, which is gathered) plus
+    the attention products as the port computes them: every query chunk
+    against all S keys (4 B H S^2 dh a layer forward, 3x with the
+    backward)."""
+    n = sum(p.numel() for k, p in params.items() if k != "embed")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 12 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * \
+        cfg.head_dim * cfg.n_layers
+    return 6.0 * n * tokens + attn, n
+
+
+def _train_full(flags):
+    """(a) The train step at deepseek-7b's widths, 4 layers, bf16,
+    remat "nothing", 4 x 2048 tokens of TokenStream for 20 steps."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat_policy="nothing")
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_train_state(cfg, seed=0, device="cuda")
+    params, opt = state["params"], state["opt"]
+    del state
+    flops, n_mm = _train_flops(cfg, params)
+    n_all = sum(p.numel() for p in params.values())
+    step = steps.make_train_step(cfg, adamw.OptimConfig(**TRAIN_OPT),
+                                 device="cuda")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    host_ms, step_ms, losses = [], [], []
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = stream.batch_at(i)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, opt, metrics = step(params, opt, batch)
+        ev[1].record()
+        step_ms.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_loop
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train: (a) a loss is not finite: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"train: (a) the loss did not fall over "
+                             f"{TRAIN_STEPS} steps: {losses}")
+    busy = _train_profile(step, params, opt, stream.batch_at(TRAIN_STEPS))
+    busy["split_ms"] = _train_split(cfg, params, opt,
+                                    stream.batch_at(TRAIN_STEPS))
+    warm = spread(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = flops / (warm["median"] * 1e-3) / PEAK_BF16_S
+    card = _smi()
+    log(f"[train] (a) {TRAIN_ARCH} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), {TRAIN_LAYERS} of 30 layers, bf16, remat "
+        f"\"nothing\", {n_all / 1e9:.3f}B parameters ({n_mm / 1e9:.3f}B in "
+        f"products), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} "
+        f"steps, {flags}; {card}")
+    log(f"[train] (a) ms/step {fmt_spread(warm)} (steps 2-{TRAIN_STEPS}; "
+        f"the first {step_ms[0]:.1f} ms), {tokens / warm['median'] * 1e3:.0f}"
+        f" tokens/s ({TRAIN_STEPS * tokens / wall:.0f} over the loop's "
+        f"{wall:.2f} s wall); model FLOPs {flops / 1e12:.2f} T a step, "
+        f"bound {flops / PEAK_BF16_S * 1e3:.2f} ms at 989 TFLOP/s bf16, "
+        f"MFU {mfu * 100:.1f} %; peak memory_allocated {peak / 2**30:.2f} "
+        f"GiB; batch_at on the host {fmt_spread(spread(host_ms))}; loss "
+        f"first 5 {first:.4f}, last 5 {last:.4f}")
+    row = dict(arch=TRAIN_ARCH, layers=TRAIN_LAYERS, params=n_all,
+               params_in_products=n_mm, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, ms_per_step=warm, first_step_ms=step_ms[0],
+               tokens_per_s=tokens / warm["median"] * 1e3,
+               loop_tokens_per_s=TRAIN_STEPS * tokens / wall,
+               model_tflop=flops / 1e12,
+               bound_ms=flops / PEAK_BF16_S * 1e3, mfu=mfu,
+               peak_allocated_gib=peak / 2**30,
+               batch_at_ms=spread(host_ms), loss_first5=first,
+               loss_last5=last, losses=losses, profile=busy, card=card)
+    del params, opt, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+# cuBLAS's GEMM kernels on Hopper ("nvjet_*", "sm90_xmma_*", cutlass)
+_GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def _train_profile(step, params, opt, batch) -> dict:
+    """One more step under torch.profiler: its wall ms, the device's busy
+    ms (the kernels' summed device time), the share of the GEMM kernels
+    and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del out
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if us and getattr(evt, "device_type", None) is not None and \
+                "CUDA" in str(evt.device_type):
+            kernels.append((us / 1e3, evt.key, evt.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    gemm = sum(k[0] for k in kernels
+               if any(n in k[1].lower() for n in _GEMM_NAMES))
+    top = [dict(name=n[:80], ms=ms, calls=c) for ms, n, c in kernels[:8]]
+    log(f"[train] (a) one step under torch.profiler: wall {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms ({busy / wall * 100:.1f} %), GEMM "
+        f"kernels {gemm:.1f} ms ({gemm / max(busy, 1e-9) * 100:.1f} % of "
+        f"busy), {sum(k[2] for k in kernels)} kernel launches")
+    for t in top:
+        log(f"[train] (a)   {t['ms']:9.2f} ms  {t['calls']:5d} x  "
+            f"{t['name']}")
+    return dict(wall_ms=wall, busy_ms=busy, gemm_ms=gemm,
+                launches=sum(k[2] for k in kernels), top=top)
+
+
+def _train_split(cfg, params, opt, batch) -> dict:
+    """The step's two halves timed apart with CUDA events (median of 3):
+    ``loss_and_grads`` (forward, recomputation, backward) and AdamW's
+    ``apply_updates``."""
+    from repro_torch.data.tokens import to_device
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    batch = to_device(batch, "cuda")
+    ocfg = adamw.OptimConfig(**TRAIN_OPT)
+    decay = steps.decayed(params)
+    grads = steps.loss_and_grads(cfg, params, batch)[2]
+    fwd = statistics.median(cuda_times(
+        lambda: steps.loss_and_grads(cfg, params, batch), reps=3,
+        warmup=0))
+    opt_ms = statistics.median(cuda_times(
+        lambda: adamw.apply_updates(params, grads, opt, ocfg, decay),
+        reps=3, warmup=1))
+    log(f"[train] (a) the step's halves (CUDA events, median of 3): "
+        f"forward and backward {fwd:.1f} ms, AdamW {opt_ms:.1f} ms")
+    return dict(forward_backward=fwd, adamw=opt_ms)
+
+
+def _smi() -> str:
+    from repro_torch.device import smi
+
+    return smi("name,power.limit")
+
+
+def _train_card_vs_cpu_full():
+    """(b) deepseek-7b's widths cut to one layer, float32, TF32 off,
+    1 x 128 tokens: the card's loss, grad norm and every gradient leaf
+    against the port's CPU run of the same step, with the score products
+    in float32 and as the model computes them (bfloat16)."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=1, dtype="float32")
+    card = tf.init_params(cfg, torch.Generator("cuda").manual_seed(11),
+                          "cuda")
+    _lm_offsets(card, torch.Generator("cuda").manual_seed(12))
+    p_card = dict(card.state_dict())
+    del card
+    p_cpu = {k: v.cpu() for k, v in p_card.items()}
+    batch = TokenStream(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ,
+                        seed=1).batch_at(0)
+    rows = []
+    for scores, of_max in ((torch.float32, TRAIN_F32_OF_MAX),
+                           (torch.bfloat16, TRAIN_BF16_SCORES_OF_MAX)):
+        with _lm_scores(scores):
+            t0 = time.perf_counter()
+            l_card, _, g_card = steps.loss_and_grads(
+                cfg, p_card, {k: torch.from_numpy(v).cuda() for k, v in
+                              batch.items()})
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            l_cpu, _, g_cpu = steps.loss_and_grads(
+                cfg, p_cpu, {k: torch.from_numpy(v) for k, v in
+                             batch.items()})
+            t_cpu = time.perf_counter() - t0
+        sc = str(scores).removeprefix("torch.")
+        gn_card = float(adamw.global_norm(g_card))
+        gn_cpu = float(adamw.global_norm(g_cpu))
+        if not math.isclose(float(l_card), float(l_cpu),
+                            rel_tol=TRAIN_LOSS_RTOL):
+            raise AssertionError(f"train: (b) {sc} scores: loss "
+                                 f"{float(l_card)} on the card, "
+                                 f"{float(l_cpu)} on the CPU")
+        if not math.isclose(gn_card, gn_cpu, rel_tol=of_max):
+            raise AssertionError(f"train: (b) {sc} scores: grad norm "
+                                 f"{gn_card} on the card, {gn_cpu} on the "
+                                 "CPU")
+        worst = _flat_grads_close(f"(b) {sc} scores", g_card, g_cpu,
+                                  of_max=of_max)
+        log(f"[train] (b) {TRAIN_ARCH} widths, 1 layer, float32, {sc} "
+            f"scores, TF32 off, {TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens: "
+            f"loss {float(l_card):.6f} card / {float(l_cpu):.6f} CPU, grad "
+            f"norm {gn_card:.6f} / {gn_cpu:.6f} (rule {of_max:g}), every one "
+            f"of {len(g_cpu)} gradient leaves within {of_max:g} of its "
+            f"largest magnitude (worst {worst:.3e}); forward and backward "
+            f"{t_card:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+        rows.append(dict(scores=sc, loss_card=float(l_card),
+                         loss_cpu=float(l_cpu), grad_norm_card=gn_card,
+                         grad_norm_cpu=gn_cpu, worst_of_max=worst,
+                         rule=of_max))
+        del g_card, g_cpu
+    del p_card, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_smoke_pair(name, dtype):
+    """(loss, metrics, grads) on the card and on the CPU for one smoke
+    config from one draw (every vector leaf drawn)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get_smoke(name), dtype=dtype)
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(21), "cpu")
+    _lm_offsets(cpu, torch.Generator().manual_seed(22))
+    p_cpu = dict(cpu.state_dict())
+    p_card = {k: v.cuda() for k, v in p_cpu.items()}
+    batch = TokenStream(cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S,
+                        seed=3).batch_at(0)
+    on_card = steps.loss_and_grads(cfg, p_card, {
+        k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    on_cpu = steps.loss_and_grads(cfg, p_cpu, {
+        k: torch.from_numpy(v) for k, v in batch.items()})
+    return on_card, on_cpu
+
+
+def _train_smoke_card_vs_cpu():
+    """(c) The seven smoke configs, card against the port's CPU run of
+    forward_train and its gradients: float32 (score products in float32,
+    then as the model computes them) and bfloat16."""
+    rows = []
+    cases = [("float32", torch.float32), ("float32", torch.bfloat16),
+             ("bfloat16", torch.bfloat16)]
+    for dtype, scores in cases:
+        for name in TRAIN_SMOKE:
+            with _lm_scores(scores):
+                (lg, mg, gg), (lc, mc, gc_) = _train_smoke_pair(name, dtype)
+            if dtype == "bfloat16":
+                rtol, kw = TRAIN_BF16_LOSS_RTOL, dict(
+                    of_norm=TRAIN_BF16_OF_NORM)
+            elif scores == torch.float32:
+                rtol, kw = TRAIN_LOSS_RTOL, dict(of_max=TRAIN_F32_OF_MAX)
+            else:
+                rtol, kw = TRAIN_LOSS_RTOL, dict(
+                    of_max=TRAIN_BF16_SCORES_OF_MAX)
+            for k in mc:
+                if not math.isclose(float(mg[k]), float(mc[k]),
+                                    rel_tol=rtol, abs_tol=1e-7):
+                    raise AssertionError(
+                        f"train: (c) {name} {dtype} {k}: {float(mg[k])} on "
+                        f"the card, {float(mc[k])} on the CPU")
+            label = f"(c) {name} {dtype}"
+            worst = _flat_grads_close(label, gg, gc_, **kw)
+            sc = str(scores).removeprefix("torch.")
+            rel = abs(float(lg) - float(lc)) / abs(float(lc))
+            rule = (f"{kw.get('of_max')} of each leaf's maximum"
+                    if "of_max" in kw else f"{kw['of_norm']} of its norm")
+            log(f"[train] (c) {name} smoke, {dtype}, {sc} scores: loss "
+                f"{float(lg):.6f} card / {float(lc):.6f} CPU (rel "
+                f"{rel:.2e}, rule {rtol:g}); every gradient leaf within "
+                f"{rule} (worst {worst:.3e})")
+            rows.append(dict(arch=name, dtype=dtype, scores=sc,
+                             loss_rel=rel, worst=worst))
+    return rows
+
+
+def _train_supervised():
+    """(d) TrainSupervisor at gemma-7b's smoke config on the card under
+    torch.use_deterministic_algorithms: a fault at step 23 ends in the
+    clean run's state."""
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.fault import SupervisorConfig, TrainSupervisor
+
+    cfg = get_smoke(TRAIN_SUP_ARCH)
+    env_was = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    finals, secs = [], []
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as tmp:
+            warnings.simplefilter("always")
+            for fault in (None, TRAIN_SUP_FAULT):
+                step = steps.make_train_step(
+                    cfg, adamw.OptimConfig(lr=3e-4, warmup_steps=8,
+                                           total_steps=TRAIN_SUP_STEPS),
+                    device="cuda")
+                stream = TokenStream(cfg, 8, 64)
+
+                def step_fn(state, batch):
+                    p, o, _ = step(state["params"], state["opt"], batch)
+                    return {"params": p, "opt": o}
+
+                sup = TrainSupervisor(
+                    step_fn, CheckpointManager(f"{tmp}/{fault}"),
+                    SupervisorConfig(ckpt_every=TRAIN_SUP_EVERY))
+                t0 = time.perf_counter()
+                state, end = sup.run(
+                    steps.init_train_state(cfg, seed=0, device="cuda"),
+                    stream.stream, TRAIN_SUP_STEPS, fault_at=fault,
+                    device="cuda")
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                if end != TRAIN_SUP_STEPS or sup.restarts != (fault
+                                                               is not None):
+                    raise AssertionError(f"train: (d) ended at {end} after "
+                                         f"{sup.restarts} restarts")
+                finals.append(state)
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env_was is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_was
+    clean, faulty = ({**s["params"], "step": s["opt"]["step"],
+                      **{f"{m}.{k}": v for m in ("mu", "nu")
+                         for k, v in s["opt"][m].items()}} for s in finals)
+    if nondet:
+        # a tolerance in place of bit-equality, naming the ops
+        worst = _flat_grads_close("(d)", faulty, clean, of_max=1e-6)
+        verdict = (f"within 1e-6 of each leaf's maximum (worst "
+                   f"{worst:.3e}): no deterministic CUDA version of "
+                   f"{nondet}")
+    else:
+        diff = [k for k in clean if not bits_equal(clean[k], faulty[k])]
+        if diff:
+            raise AssertionError(f"train: (d) the faulted run differs in "
+                                 f"{diff[:5]}")
+        verdict = "bit-equal"
+    log(f"[train] (d) TrainSupervisor, {TRAIN_SUP_ARCH} smoke on the card, "
+        f"deterministic algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8: "
+        f"{TRAIN_SUP_STEPS} steps clean ({secs[0]:.2f} s) and with a fault "
+        f"at step {TRAIN_SUP_FAULT} restored from step 20 ({secs[1]:.2f} "
+        f"s): parameters and moments {verdict}")
+    return dict(verdict=verdict, nondeterministic=nondet, seconds=secs)
+
+
+def _train_cli():
+    """(d) The training launcher as a user runs it, in a subprocess, at
+    gemma-7b's smoke config on the card."""
+    import os
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_SUP_ARCH, "--smoke", "--steps", "40", "--batch", "8",
+               "--seq", "64", "--ckpt", tmp]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ, PYTHONPATH=str(
+                                 ROOT / "src")))
+    secs = time.perf_counter() - t0
+    if out.returncode != 0 or "loss improved" not in out.stdout:
+        raise AssertionError(f"train: the launcher failed ({out.returncode})"
+                             f": {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    for line in out.stdout.splitlines():
+        if line.startswith("[train] arch=") or "improved" in line:
+            log(f"[train] (d) {line}")
+    log(f"[train] (d) python -m repro_torch.launch.train --arch "
+        f"{TRAIN_SUP_ARCH} --smoke --steps 40 --batch 8 --seq 64: exit 0, "
+        f"{secs:.1f} s")
+    return dict(seconds=secs)
+
+
+def phase_train(report):
+    """Phase 17 (after 16, before 10; TF32 and reduced-precision
+    reductions off as in phase 15): (a) the full-width train step; (b) one
+    layer of it in float32 against the CPU; (c) the smoke configs against
+    the CPU; (d) the supervisor with a fault, and the CLI. Training runs
+    none of the hand-written kernels: their launches are counted from 0
+    around the phase and recorded (``phase17_launches``)."""
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    row = {}
+    with _lm_flags() as flags:
+        row["flags"] = flags
+        row["full"] = _train_full(flags)
+        row["card_vs_cpu"] = _train_card_vs_cpu_full()
+        row["smoke"] = _train_smoke_card_vs_cpu()
+        row["supervised"] = _train_supervised()
+    row["cli"] = _train_cli()
+    launches = dict(build.LAUNCHES)
+    for name, r in report.items():
+        r["phase17_launches"] = launches.get(name, 0)
+    log(f"[train] launches of the hand-written kernels in phase 17: "
+        f"{launches} (training runs none of them)")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -4205,6 +4725,8 @@ def main() -> int:
     done("LM serving")
     rec_row = phase_recurrent(report)
     done("recurrent families and int8 decode")
+    train_row = phase_train(report)
+    done("LM training")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -4220,6 +4742,7 @@ def main() -> int:
     print(json.dumps({"front_end": fe_row}))
     print(json.dumps({"lm_serving": lm_row}))
     print(json.dumps({"recurrent_int8": rec_row}))
+    print(json.dumps({"lm_training": train_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,19 +160,41 @@ def _np_float(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _lm_tree(params, leaf) -> dict:
-    """The port's parameters in the reference's nested layout, each leaf
-    ``leaf(tensors, stacked)`` of its layers' tensors in layer order."""
+def _lm_tree(named, leaf) -> dict:
+    """Named per-layer tensors (the port's ``named_parameters()``, or a
+    flat dict's items with those names) in the reference's nested layout,
+    each leaf ``leaf(tensors, stacked)`` of its layers' tensors in layer
+    order."""
     layers: dict = {}
-    for name, t in params.named_parameters():
+    for name, t in named:
         path, idx = _lm_path(name)
-        layers.setdefault(path, (idx is not None, []))[1].append(t)
+        layers.setdefault(path, (idx is not None, []))[1].append((idx, t))
     out: dict = {}
     for path, (stacked, ts) in layers.items():
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = leaf(ts, stacked)
+        ts = sorted(ts, key=lambda it: it[0]) if stacked else ts
+        node[path[-1]] = leaf([t for _, t in ts], stacked)
+    return out
+
+
+def _stack_np(ts, stacked):
+    return np.stack([_np_float(t) for t in ts]) if stacked \
+        else _np_float(ts[0])
+
+
+def _lm_flat_from_tree(names, tree: dict) -> dict:
+    """``{name: float32 tensor}`` for the port's parameter ``names`` from
+    the reference's nested tree (the group axis split), on the CPU."""
+    out = {}
+    for name in names:
+        path, idx = _lm_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        a = np.asarray(node if idx is None else node[idx], np.float32)
+        out[name] = torch.from_numpy(a.copy())
     return out
 
 
@@ -185,17 +207,15 @@ def lm_params_from_numpy(cfg, tree: dict):
     from .models import transformer as tf
 
     params = tf.init_params(cfg, device="meta").to_empty(device="cpu")
+    flat = _lm_flat_from_tree([n for n, _ in params.named_parameters()],
+                              tree)
     with torch.no_grad():
         for name, param in params.named_parameters():
-            path, idx = _lm_path(name)
-            node = tree
-            for key in path:
-                node = node[key]
-            a = np.asarray(node if idx is None else node[idx], np.float32)
-            if a.shape != tuple(param.shape):
-                raise ValueError(f"{'/'.join(path)}: {a.shape}, the port's "
+            if flat[name].shape != param.shape:
+                raise ValueError(f"{'/'.join(_lm_path(name)[0])}: "
+                                 f"{tuple(flat[name].shape)}, the port's "
                                  f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(a))
+            param.copy_(flat[name])
     return params
 
 
@@ -203,15 +223,38 @@ def lm_params_to_numpy(params) -> dict:
     """The inverse of :func:`lm_params_from_numpy`: the reference's nested
     layout with the layers stacked along the group axis (bfloat16 leaves
     as float32)."""
-    return _lm_tree(params, lambda ts, stacked: np.stack(
-        [_np_float(t) for t in ts]) if stacked else _np_float(ts[0]))
+    return _lm_tree(params.named_parameters(), _stack_np)
+
+
+def lm_grads_to_numpy(grads: dict) -> dict:
+    """A flat dict of the port's per-layer tensors (gradients, moments or
+    parameters of the train step, keyed as ``Params.state_dict()``) ->
+    the reference's nested layout, the layers stacked along the group axis
+    (bfloat16 as float32)."""
+    return _lm_tree(grads.items(), _stack_np)
+
+
+def lm_opt_state_from_numpy(cfg, opt: dict) -> dict:
+    """The reference's AdamW state ``{"mu": tree, "nu": tree, "step": []}``
+    (numpy leaves) -> the port's train-step state on the CPU: ``mu`` and
+    ``nu`` flat dicts of float32 tensors keyed as the port's parameters
+    (each stacked leaf split per layer, as :func:`lm_params_from_numpy`
+    splits the parameters), ``step`` an int32 scalar tensor."""
+    from .models import transformer as tf
+
+    names = [n for n, _ in tf.init_params(cfg, device="meta")
+             .named_parameters()]
+    return {"mu": _lm_flat_from_tree(names, opt["mu"]),
+            "nu": _lm_flat_from_tree(names, opt["nu"]),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}
 
 
 def lm_param_specs(params) -> dict:
     """{reference path "a/b/c": (shape, dtype name)} of the port's
     parameters in the reference's stacked layout, read from shapes alone
     (so a model on ``meta`` gives it without allocating)."""
-    tree = _lm_tree(params, lambda ts, stacked: (
+    tree = _lm_tree(params.named_parameters(), lambda ts, stacked: (
         ((len(ts),) if stacked else ()) + tuple(ts[0].shape),
         str(ts[0].dtype).removeprefix("torch.")))
     flat = {}

@@ -26,8 +26,8 @@ import torch
 
 from ..kernels import int8_dot
 from .config import ModelConfig
-from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs, \
-    softcap
+from .layers import Params, apply_rope, dense_init, recomputed, rmsnorm, \
+    rope_freqs, softcap
 
 NEG_INF = -2.0e38
 BF16 = torch.bfloat16
@@ -76,8 +76,9 @@ def _grouped(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _softmax(s: torch.Tensor) -> torch.Tensor:
-    """The reference's explicit max / exp / sum, in float32."""
-    m = torch.amax(s, dim=-1, keepdim=True)
+    """The reference's explicit max / exp / sum, in float32; the max is a
+    constant to autograd (the reference's ``stop_gradient``)."""
+    m = torch.amax(s, dim=-1, keepdim=True).detach()
     e = torch.exp(s - m)
     return e / torch.sum(e, dim=-1, keepdim=True)
 
@@ -103,13 +104,16 @@ def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
         raise ValueError(f"prompt length {S} is not a multiple of the "
                          f"attention chunk {C}")
     key_pos = torch.arange(S, device=qg.device)
+    # under attn_remat each chunk's scores are recomputed in the backward
+    # (the reference's jax.checkpoint of its chunk body)
+    attend = recomputed(_attend_chunk) if cfg.attn_remat else _attend_chunk
     outs = []
     for c0 in range(0, S, C):
         qpos = c0 + torch.arange(C, device=qg.device)
         keep = key_pos[None, :] <= qpos[:, None]
         if cfg.sliding_window is not None:
             keep &= key_pos[None, :] > qpos[:, None] - cfg.sliding_window
-        outs.append(_attend_chunk(qg[:, c0:c0 + C], k, v, keep, cfg))
+        outs.append(attend(qg[:, c0:c0 + C], k, v, keep, cfg))
     return torch.cat(outs, dim=1).reshape(B, S, cfg.n_heads * cfg.head_dim)
 
 

@@ -7,6 +7,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class Params(nn.Module):
@@ -27,6 +28,17 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def recomputed(fn, context_fn=None):
+    """``fn`` as a non-reentrant ``torch.utils.checkpoint`` region: only
+    its inputs are kept for the backward, which runs it again
+    (``context_fn`` selects ops whose outputs are kept instead); ``fn``
+    itself when no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return fn
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

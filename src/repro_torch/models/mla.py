@@ -30,7 +30,8 @@ import torch
 from ..kernels import int8_dot
 from .attention import BF16, NEG_INF, _quant_rows, _softmax
 from .config import ModelConfig
-from .layers import Params, apply_rope, dense_init, rmsnorm, rope_freqs
+from .layers import Params, apply_rope, dense_init, recomputed, rmsnorm, \
+    rope_freqs
 
 
 def init_mla_params(cfg: ModelConfig, dtype,
@@ -104,17 +105,23 @@ def mla_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"prompt length {S} is not a multiple of the "
                          f"attention chunk {C}")
     key_pos = torch.arange(S, device=x.device)
-    outs = []
-    for c0 in range(0, S, C):
-        s = (torch.einsum("bqhd,bkhd->bhqk", q_nope[:, c0:c0 + C].to(BF16),
+
+    def chunk(qn_c, qr_c, k_nope, k_rope, v, keep):
+        s = (torch.einsum("bqhd,bkhd->bhqk", qn_c.to(BF16),
                           k_nope.to(BF16)).float()
-             + torch.einsum("bqhd,bkd->bhqk", q_rope[:, c0:c0 + C].to(BF16),
+             + torch.einsum("bqhd,bkd->bhqk", qr_c.to(BF16),
                             k_rope.to(BF16)).float()) * scale
-        qpos = c0 + torch.arange(C, device=x.device)
-        keep = key_pos[None, :] <= qpos[:, None]
         s = torch.where(keep[None, None, :, :], s, NEG_INF)
         pr = _softmax(s).to(v.dtype)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", pr, v))
+        return torch.einsum("bhqk,bkhd->bqhd", pr, v)
+
+    attend = recomputed(chunk) if cfg.attn_remat else chunk
+    outs = []
+    for c0 in range(0, S, C):
+        qpos = c0 + torch.arange(C, device=x.device)
+        keep = key_pos[None, :] <= qpos[:, None]
+        outs.append(attend(q_nope[:, c0:c0 + C], q_rope[:, c0:c0 + C],
+                           k_nope, k_rope, v, keep))
     o = torch.cat(outs, dim=1).reshape(B, S, H * dv)
     return o @ p.wo
 

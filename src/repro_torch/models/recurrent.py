@@ -21,8 +21,9 @@ matrix), so its prefill is a loop over the sequence, as the reference's
 
 Every decode function updates its state dict in place (``copy_`` into each
 leaf, which may be a view of the stacked decode cache) and reads nothing on
-the host, so a CUDA graph can capture it. Training (a backward pass) is not
-ported: the ``*_train`` forwards share the prefill bodies.
+the host, so a CUDA graph can capture it. The ``*_train`` forwards share
+the prefill bodies and write nothing in place, so autograd runs through
+them (``transformer.forward_train``).
 
 Numerics kept from JAX: ``jnp.var`` is the population variance
 (``correction=0``); ``jax.nn.gelu(approximate=True)`` is the tanh form;

@@ -16,13 +16,15 @@ place.
 Public API (``params`` is the :class:`~.layers.Params` tree that
 :func:`init_params` returns):
     init_params(cfg, generator, device)              -> params
+    forward_train(params, batch, cfg)                -> (loss, metrics)
     init_cache(cfg, B, S_max, device)                -> decode cache
     prefill(params, batch, cfg, s_max)               -> (cache, last_logits)
     decode_step(params, cache, tokens, cfg,
                 return_hidden)                       -> (cache, logits[, h])
 
 ``batch`` is a dict: tokens [B,S] (audio: [B,S,n_codebooks]); vlm adds
-vision [B,Nv,vision_dim]. ``decode_step`` updates ``cache`` in place
+vision [B,Nv,vision_dim]; training adds labels (and, for MTP,
+tokens_next and labels_mtp). ``decode_step`` updates ``cache`` in place
 (every leaf, ``pos`` included, stays at its address) and returns it; it
 reads nothing on the host, so a CUDA graph can capture it.
 
@@ -38,13 +40,24 @@ decode contracts them with the ``int8_dot`` kernel
 float cache there, as the reference's does (its ``_rebuild_cache``
 replaces the int8 dicts), so int8 decode starts from :func:`init_cache`.
 
-Not ported yet (ROADMAP Queue 1): ``forward_train`` and its chunked loss
-(the training slice).
+Training: :func:`forward_train` is the reference's next-token loss with
+its MoE auxiliary term and DeepSeek-V3's multi-token-prediction head. Each
+pattern group is one ``torch.utils.checkpoint`` region under
+``cfg.remat_policy`` (:func:`_remat`: ``"nothing"`` keeps only a group's
+input and recomputes the rest in the backward, ``"dots"`` keeps the
+weight products, ``"full"`` keeps everything), and the loss over the
+vocabulary is taken a chunk of 512 positions at a time, each chunk's
+logits recomputed in the backward (:func:`_logits_chunked`), so the
+[B, S, V] float32 logits never exist at once. It writes nothing in place,
+so ``torch.func.functional_call`` can run it on a flat dict of tensors
+(``runtime/steps.py``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from . import attention as attn
@@ -52,7 +65,8 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import recurrent as rec
 from .config import ModelConfig
-from .layers import Params, dense_init, gated_mlp, rmsnorm
+from .layers import Params, cross_entropy, dense_init, gated_mlp, \
+    recomputed, rmsnorm
 
 PORTED_FAMILIES = ("dense", "audio", "vlm", "moe", "hybrid", "ssm")
 
@@ -207,6 +221,162 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig):
     if cfg.family == "audio":
         logits = logits.reshape(-1, cfg.n_codebooks, cfg.vocab)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+# the products the "dots" policy keeps (the reference's
+# checkpoint_dots_with_no_batch_dims): a [.., d] @ [d, f] weight product
+# reaches the dispatcher as a 2-D mm; the attention and expert products are
+# batched (bmm) and recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy`` (the reference's ``jax.checkpoint``
+    of a group): ``"full"`` keeps every activation for the backward (no
+    checkpoint), ``"dots"`` keeps the 2-D weight products and recomputes
+    the rest, ``"nothing"`` keeps only the inputs and recomputes the
+    whole group. Without a gradient being recorded ``fn`` runs as is."""
+    if cfg.remat_policy == "full":
+        return fn
+    if cfg.remat_policy == "dots":
+        return recomputed(fn, _dots_context)
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+    return recomputed(fn)
+
+
+def _mlp(p: Params, x, cfg: ModelConfig):
+    h2 = rmsnorm(x, p.ln2, cfg.rmsnorm_eps)
+    return x + gated_mlp(h2, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down,
+                         cfg.activation)
+
+
+def _apply_position_train(p: Params, kind: str, x, cfg: ModelConfig,
+                          vision) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer over the whole sequence; returns (x', aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(x, p.ln1, cfg.rmsnorm_eps)
+    if kind in ("self", "local_attn"):
+        o = (mla_mod.mla_train(p.attn, h, cfg) if cfg.attn_kind == "mla"
+             else attn.attn_train(p.attn, h, cfg))
+        x = _mlp(p, x + o, cfg)
+    elif kind == "cross":
+        o = attn.cross_attn(p.attn, h, vision, cfg)
+        x = _mlp(p, x + torch.tanh(p.gate) * o, cfg)
+    elif kind == "moe":
+        x = x + mla_mod.mla_train(p.attn, h, cfg)
+        y, aux = moe_mod.moe_ffn(p.moe, rmsnorm(x, p.ln2, cfg.rmsnorm_eps),
+                                 cfg)
+        x = x + y
+    elif kind == "rglru":
+        x = _mlp(p, x + rec.rglru_train(p.rec, h, cfg), cfg)
+    elif kind == "mlstm":
+        x = x + rec.mlstm_train(p.cell, h, cfg)
+    elif kind == "slstm":
+        x = x + rec.slstm_train(p.cell, h, cfg)
+    else:
+        raise ValueError(kind)
+    return x, aux
+
+
+LOSS_CHUNK = 512
+
+
+def _chunk_ce(xc, unembed, lc, cfg: ModelConfig):
+    logits = xc @ unembed
+    if cfg.family == "audio":
+        logits = logits.reshape(*xc.shape[:2], cfg.n_codebooks, cfg.vocab)
+    return cross_entropy(logits, lc)
+
+
+def _logits_chunked(params: Params, x, cfg: ModelConfig, labels):
+    """Mean CE over the vocabulary without the [B, S, V] float32 logits:
+    C = min(512, S) positions at a time, the chunks' CE summed in order
+    with weight 1/(S/C), as the reference's scan sums them; under autograd
+    each chunk's logits are recomputed in the backward. S must be a
+    multiple of C (the reference's reshape requires it)."""
+    S = x.shape[1]
+    unembed = params.unembed if "unembed" in params else params.embed.T
+    C = min(LOSS_CHUNK, S)
+    if S % C:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {C}")
+    nc = S // C
+    ce = recomputed(_chunk_ce)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, C):
+        tot = tot + ce(x[:, c0:c0 + C], unembed, labels[:, c0:c0 + C],
+                       cfg) * (1.0 / nc)
+    return tot
+
+
+def forward_train(params: Params, batch: dict, cfg: ModelConfig):
+    """Next-token LM loss (audio: per-codebook CE; vlm: text CE); returns
+    (loss, metrics) with ``lm_loss``, ``aux_loss`` (the MoE load-balance
+    term, summed over the MoE layers), ``mtp_loss`` (MTP only) and
+    ``loss`` = lm_loss (+ 0.001 aux_loss for MoE, + 0.3 mtp_loss with
+    MTP), every value a float32 tensor on the batch's device.
+
+    ``batch`` holds tensors on the parameters' device. ``vision`` is cast
+    to the model's dtype first: the reference's trainer feeds it float32
+    (``data/tokens.py``), which promotes its residual stream and breaks
+    its bfloat16 scan (ROADMAP Queue 3)."""
+    x = _embed_tokens(params, batch, cfg)
+    vision = batch.get("vision")
+    if vision is not None:
+        vision = vision.to(_dtype(cfg))
+    _, pattern = group_layout(cfg)
+
+    def prefix_body(h, p):
+        return _apply_position_train(p, "self", h, cfg, vision)[0]
+
+    def group_body(h, aux_sum, group):
+        for i, kind in enumerate(pattern):
+            h, aux = _apply_position_train(group[f"{kind}_{i}"], kind, h,
+                                           cfg, vision)
+            aux_sum = aux_sum + aux
+        return h, aux_sum
+
+    if "dense_prefix" in params:
+        prefix_fn = _remat(prefix_body, cfg)
+        for p in params.dense_prefix:
+            x = prefix_fn(x, p)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    group_fn = _remat(group_body, cfg)
+    for group in params.groups:
+        x, aux_total = group_fn(x, aux_total, group)
+
+    x = rmsnorm(x, params.final_norm, cfg.rmsnorm_eps)
+    loss = _logits_chunked(params, x, cfg, batch["labels"])
+    metrics = {"lm_loss": loss, "aux_loss": aux_total}
+    if cfg.family == "moe":
+        loss = loss + 0.001 * aux_total
+    if cfg.family == "moe" and cfg.mtp_depth and "labels_mtp" in batch:
+        # MTP: predict t+2 from [h_t ; emb(t_{t+1})]
+        mtp = params.mtp
+        emb_next = params.embed[batch["tokens_next"].long()]
+        h_in = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mtp.proj
+        h_mtp, _ = _apply_position_train(mtp.block, "self", h_in, cfg,
+                                         vision)
+        h_mtp = rmsnorm(h_mtp, mtp.ln, cfg.rmsnorm_eps)
+        mtp_loss = _logits_chunked(params, h_mtp, cfg, batch["labels_mtp"])
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ tensors (port of ``repro.optim.adamw``).
 
 Functional, as ``repro``'s: :func:`apply_updates` returns new parameters and
 a new state and leaves its inputs alone. Only matrices (``ndim >= 2``) are
-decayed. Moments and arithmetic are float32; the step counter is an int32
+decayed, unless the caller names the decayed tensors (``decay``: the LM's
+train step names those the reference decays, whose stacked leaves have a
+layer axis more than the port's per-layer tensors). Moments and arithmetic are float32; the step counter is an int32
 tensor on the parameters' device, so a training step reads nothing on the
 host.
 """
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Container
 
 import torch
 
@@ -57,9 +60,10 @@ def global_norm(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
 
 def apply_updates(params: dict[str, torch.Tensor],
                   grads: dict[str, torch.Tensor], state: dict,
-                  cfg: OptimConfig):
+                  cfg: OptimConfig, decay: Container[str] | None = None):
     """One AdamW step; returns (params', state', metrics). ``grads`` has
-    the keys of ``params``."""
+    the keys of ``params``; ``decay``: the keys weight decay applies to
+    (default: every tensor with ``ndim >= 2``)."""
     step = state["step"]
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
@@ -74,12 +78,13 @@ def apply_updates(params: dict[str, torch.Tensor],
     bc2 = 1 - torch.pow(torch.full((), b2, device=t.device), t)
     lr = schedule(step, cfg)
 
-    def upd(p, m, v):
+    def upd(k, p, m, v):
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if p.dim() >= 2:  # decay matrices only
+        if p.dim() >= 2 if decay is None else k in decay:
             u = u + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * u).to(p.dtype)
 
-    new_params = {k: upd(p.detach(), mu[k], nu[k]) for k, p in params.items()}
+    new_params = {k: upd(k, p.detach(), mu[k], nu[k])
+                  for k, p in params.items()}
     new_state = {"mu": mu, "nu": nu, "step": step + 1}
     return new_params, new_state, {"grad_norm": gn, "lr": lr}

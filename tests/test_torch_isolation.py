@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports JAX or the JAX package ``repro``."""
+``chip_smoke.py``) imports JAX, the JAX package ``repro`` or ``ml_dtypes``
+(JAX's dtype package, which the card's host does not have)."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path: Path):
@@ -37,11 +38,12 @@ def test_every_module_imports_without_jax_or_repro():
         for p in PORT.rglob("*.py"))
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'jaxlib') and v is not None"
+        "assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes')"
+        " and v is not None"
         " for k, v in sys.modules.items())\n"
         "print('ok', len(%r))\n" % (modules,))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
