@@ -271,6 +271,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import sys
 import threading
@@ -4608,6 +4609,387 @@ def phase_train(report):
     return row
 
 
+# phase 18: the mesh layer on one card (a one-rank NCCL group)
+MESH_STEPS = 3
+# deepseek-v2-236b's MoE widths for moe_ffn_ep (bf16 experts: 7.5 GB)
+EP_ARCH, EP_BATCH, EP_SEQ = "deepseek-v2-236b", 4, 2048
+EP_OF_MAX = 2.0 ** -7
+PIPE_LAYERS, PIPE_D, PIPE_MICRO, PIPE_MB = 4, 1024, 4, 8
+DRYRUN_ARCH, DRYRUN_SHAPE = "deepseek-7b", "train_4k"
+DRYRUN_FLOPS_RATIO = 2.0    # (d): the most FLOPs over model_flops
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_train(mesh) -> dict:
+    """(a) Phase 17's cell (deepseek-7b's widths, 4 of 30 layers, bf16,
+    4 x 2048 tokens) for MESH_STEPS steps: the plain step, then the step
+    on the 1x1 mesh with parameters, AdamW state and batch placed by the
+    specs, both from seed 0; losses and parameters bit-equal."""
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat_policy="nothing")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    ocfg = adamw.OptimConfig(**TRAIN_OPT)
+    runs = {}
+    for label in ("plain", "mesh"):
+        state = steps.init_train_state(cfg, seed=0, device="cuda")
+        params, opt = state["params"], state["opt"]
+        del state
+        if label == "mesh":
+            params = shd.distribute(params,
+                                    shd.params_sharding(params, mesh))
+            opt = shd.distribute(opt, shd.params_sharding(opt, mesh))
+        step = steps.make_train_step(cfg, ocfg, device="cuda",
+                                     mesh=mesh if label == "mesh" else None)
+        ms, losses = [], []
+        for i in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, stream.batch_at(i))
+            loss = metrics["loss"]
+            loss = loss.full_tensor() if hasattr(loss, "full_tensor") \
+                else loss
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        host = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                .to("cpu") for k, v in params.items()}
+        runs[label] = dict(ms=ms, losses=losses, params=host)
+        del params, opt, metrics, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["plain"], runs["mesh"]
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"mesh (a): losses {b['losses']} on the 1x1 "
+                             f"mesh, {a['losses']} plain")
+    diff = [k for k in a["params"] if not torch.equal(a["params"][k],
+                                                      b["params"][k])]
+    if diff:
+        raise AssertionError(f"mesh (a): parameters differ after "
+                             f"{MESH_STEPS} steps: {diff[:5]}")
+    row = dict(arch=TRAIN_ARCH, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=MESH_STEPS, losses=a["losses"],
+               plain_ms=a["ms"], mesh_ms=b["ms"],
+               plain_ms_after_first=statistics.median(a["ms"][1:]),
+               mesh_ms_after_first=statistics.median(b["ms"][1:]))
+    log(f"[mesh] (a) {TRAIN_ARCH} {TRAIN_LAYERS} layers, bf16, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MESH_STEPS} steps on a 1x1 "
+        f"(data, model) mesh of one NCCL rank: losses and parameters "
+        f"bit-equal to the plain step ({a['losses']}); ms/step plain "
+        f"{[round(x, 2) for x in a['ms']]}, mesh "
+        f"{[round(x, 2) for x in b['ms']]} (DTensor's host overhead; the "
+        f"first step propagates every op's sharding once)")
+    return row
+
+
+def _grads_of(fn, leaves: dict):
+    for t in leaves.values():
+        t.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = fn()
+    (y.float().square().mean() + aux).backward()
+    torch.cuda.synchronize()
+    return y, aux, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_ep(mesh) -> dict:
+    """(b) moe_ffn_ep on the 1x1 mesh at deepseek-v2-236b's MoE widths
+    against moe_ffn, forward and gradients of mean(y^2) + aux."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import spmd
+
+    cfg = get(EP_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe_params(cfg, torch.bfloat16, generator=gen,
+                            device="cuda")
+    flat = {k: v.detach().requires_grad_(True)
+            for k, v in p.state_dict().items()}
+    x = torch.randn(EP_BATCH, EP_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+    expert_gb = sum(flat[k].numel() * 2 for k in ("w_gate", "w_up",
+                                                   "w_down")) / 1e9
+    out = {}
+    ms = {}
+    for label in ("plain", "plain", "ep", "ep"):
+        if label == "plain":
+            y, aux, t = _grads_of(lambda: moe.moe_ffn(
+                SimpleNamespace(**flat), x, cfg), {**flat, "x": x})
+            got = {k: v.grad.clone() for k, v in flat.items()}
+            got["x"] = x.grad.clone()
+        else:
+            specs = {"router": (), "w_gate": ("model", None, None),
+                     "w_up": ("model", None, None),
+                     "w_down": ("model", None, None),
+                     "shared_gate": (None, "model"),
+                     "shared_up": (None, "model"),
+                     "shared_down": ("model", None)}
+            from torch.distributed.tensor import distribute_tensor
+            dp = {k: distribute_tensor(v.detach(), mesh,
+                                       shd.placements(specs[k], mesh))
+                  .requires_grad_(True) for k, v in flat.items()}
+            xs = distribute_tensor(x.detach(), mesh, shd.placements(
+                ("data", None, None), mesh)).requires_grad_(True)
+            ep_cfg = dataclasses.replace(cfg, moe_groups=1)
+            with spmd.mesh_mode():
+                y, aux, t = _grads_of(lambda: moe.moe_ffn(
+                    SimpleNamespace(**dp), xs, ep_cfg, mesh=mesh),
+                    {**dp, "x": xs})
+            y, aux = y.full_tensor(), aux.full_tensor()
+            got = {k: v.grad.full_tensor() for k, v in dp.items()}
+            got["x"] = xs.grad.full_tensor()
+        ms.setdefault(label, []).append(t)
+        out[label] = (y.detach(), aux.detach(), got)
+    (y0, a0, g0), (y1, a1, g1) = out["plain"], out["ep"]
+    y_err = (y1.float() - y0.float()).abs().max().item() / max(
+        y0.float().abs().max().item(), 1e-30)
+    g_err = {k: (g1[k].float() - g0[k].float()).abs().max().item()
+             / max(g0[k].float().abs().max().item(), 1e-30) for k in g0}
+    exact = y_err == 0 and a1.item() == a0.item() and \
+        max(g_err.values()) == 0
+    # rule: within a bfloat16 ulp (2^-7) of each tensor's largest
+    # magnitude; on one rank the EP routing is the global one, so equal
+    # values are expected
+    if y_err > EP_OF_MAX or abs(a1.item() - a0.item()) > EP_OF_MAX * abs(
+            a0.item()) or max(g_err.values()) > EP_OF_MAX:
+        raise AssertionError(f"mesh (b): moe_ffn_ep on one rank differs "
+                             f"from moe_ffn: y {y_err}, aux {a1.item()} vs "
+                             f"{a0.item()}, gradients {g_err}")
+    row = dict(arch=EP_ARCH, d_model=cfg.d_model, experts=cfg.n_experts,
+               moe_d_ff=cfg.moe_d_ff, top_k=cfg.moe_top_k,
+               shared=cfg.n_shared_experts, tokens=EP_BATCH * EP_SEQ,
+               expert_gb=expert_gb, plain_ms=ms["plain"], ep_ms=ms["ep"],
+               bit_equal=exact, y_of_max=y_err,
+               grad_of_max=max(g_err.values()))
+    log(f"[mesh] (b) moe_ffn_ep on the 1x1 mesh at {EP_ARCH}'s MoE widths "
+        f"(d_model {cfg.d_model}, {cfg.n_experts} experts, moe_d_ff "
+        f"{cfg.moe_d_ff}, top-{cfg.moe_top_k}, {cfg.n_shared_experts} "
+        f"shared; {expert_gb:.2f} GB of bf16 experts), {EP_BATCH} x "
+        f"{EP_SEQ} tokens: against moe_ffn, output {y_err:.3g} and "
+        f"gradients {max(g_err.values()):.3g} of their largest (bit-equal: "
+        f"{exact}); forward + backward ms plain "
+        f"{[round(v, 2) for v in ms['plain']]}, ep "
+        f"{[round(v, 2) for v in ms['ep']]}")
+    del out, flat, x, p
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mesh_pipeline() -> dict:
+    """(c) pipeline_apply over a pod axis of one rank against the
+    sequential model: forward and gradients."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.pipeline_parallel import (pipeline_apply,
+                                                        split_stages)
+
+    mesh = make_host_mesh(1, 1, pod=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W = (torch.randn(PIPE_LAYERS, PIPE_D, PIPE_D, generator=gen,
+                     device="cuda") * PIPE_D ** -0.5)
+    xs = torch.randn(PIPE_MICRO, PIPE_MB, PIPE_D, generator=gen,
+                     device="cuda")
+
+    def stage_fn(params, x):
+        for i in range(params.shape[0]):
+            x = torch.tanh(x @ params[i])
+        return x
+
+    Wp = W.clone().requires_grad_(True)
+    out = pipeline_apply(stage_fn, split_stages(Wp, 1), xs, mesh, "pod")
+    torch.sum(out ** 2).backward()
+    Ws = W.clone().requires_grad_(True)
+    seq = torch.stack([stage_fn(Ws, xs[i]) for i in range(PIPE_MICRO)])
+    torch.sum(seq ** 2).backward()
+    f_err = (out - seq).abs().max().item()
+    g_err = (Wp.grad - Ws.grad).abs().max().item()
+    if f_err > 1e-5 or g_err > 1e-4 * Ws.grad.abs().max().item():
+        raise AssertionError(f"mesh (c): pipeline {f_err} (forward), "
+                             f"{g_err} (gradients) from the sequential model")
+    log(f"[mesh] (c) pipeline_apply over a pod axis of one rank, "
+        f"{PIPE_LAYERS} layers of width {PIPE_D}, {PIPE_MICRO} microbatches "
+        f"of {PIPE_MB}: forward {f_err:.3g}, gradients {g_err:.3g} from the "
+        f"sequential model")
+    return dict(forward_err=f_err, grad_err=g_err)
+
+
+def _start_dryrun():
+    """(d) The dry-run of one production cell, started in a subprocess (a
+    fake group of 256 ranks, one process of one thread, the CPU only)
+    after (a), while (b), (c) and (e) use the card."""
+    import subprocess
+
+    out = ROOT / "experiments" / "dryrun_torch"   # the dry-run's own
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    log_f = open(out / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--out-dir", str(out),
+         "--save-ops"], env=env, stdout=log_f, stderr=subprocess.STDOUT,
+        cwd=ROOT)
+    return proc, log_f, out, env, time.perf_counter()
+
+
+def _mesh_dryrun(started) -> dict:
+    """(d) The dry-run's record and profile_cell's top 10 from its saved
+    ops."""
+    import subprocess
+
+    proc, log_f, out, env, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+    wall = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"mesh (d): the dry-run failed: "
+                             f"{(out / 'dryrun.log').read_text()[-2000:]}")
+    cell = f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__pod16x16__baseline"
+    rec = json.loads((out / f"{cell}.json").read_text())
+    if rec["status"] != "OK" or not all(
+            rec[k] > 0 for k in ("t_compute", "t_memory", "t_collective")):
+        raise AssertionError(f"mesh (d): {rec}")
+    # deepseek-7b's heads (32), KV heads and widths divide the model axis
+    # of 16: the mesh layer gathers nothing outside DTensor's rules, and
+    # the step's FLOPs are the useful 6 N tokens plus attention's scores
+    # and their recompute (1.38x on torch 2.13), not a replicated step's
+    ratio = rec["flops_global"] / rec["model_flops"]
+    if rec["gathers"] or not 1.0 <= ratio <= DRYRUN_FLOPS_RATIO:
+        raise AssertionError(
+            f"mesh (d): {cell} gathered outside DTensor's rules or its "
+            f"FLOPs are {ratio:.3f}x model_flops (1 to "
+            f"{DRYRUN_FLOPS_RATIO}): {rec['gathers']}")
+    q = subprocess.run(
+        [sys.executable, "-m", "repro_torch.perf.profile_cell",
+         "--analysis", str(out / f"{cell}.ops.json"), "--top", "10"],
+        env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if q.returncode:
+        raise AssertionError(f"mesh (d): profile_cell failed: "
+                             f"{q.stderr[-2000:]}")
+    terms = {k: rec[k] for k in ("flops_global", "bytes_global",
+                                 "coll_bytes_global", "model_flops",
+                                 "t_compute", "t_memory", "t_collective",
+                                 "bottleneck", "useful_flops_frac",
+                                 "roofline_frac", "memory_per_device",
+                                 "lower_s", "analyze_s")}
+    terms["flops_over_model_flops"] = ratio
+    log(f"[mesh] (d) dry-run {cell}: {wall:.1f} s in a subprocess beside "
+        f"(b), (c), (e); {json.dumps(terms)}")
+    log(f"[mesh] (d) profile_cell top 10:\n{q.stdout}")
+    return dict(cell=cell, wall_s=wall, **terms)
+
+
+def _mesh_analyzer(cfg, sys_, served) -> dict:
+    """(e) The op analyzer on the edge TorR prefix step (16 streams, the
+    served traffic's first window) on the card and on the CPU: the same
+    ops, FLOPs and bytes, each kernel one op."""
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.perf import op_analyze
+
+    S = len(served)
+    feats = np.stack([fr[0].feats for fr in served])
+    words = ops.encode_packed(feats.reshape(-1, feats.shape[-1]),
+                              torch.as_tensor(sys_.R).cuda()).cpu()
+    valid = np.stack([fr[0].valid for fr in served])
+    boxes = np.stack([fr[0].boxes for fr in served]).astype(np.float32)
+    task_w = np.stack([np.asarray(sys_.task_w[s % sys_.task_w.shape[0]])
+                       for s in range(S)]).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        st = pipeline.init_multi_stream_state(cfg, task_w, device=dev)
+        im = sys_.im.to(dev)
+        args = (st, im, words.reshape(S, cfg.N_max, -1).to(dev),
+                torch.from_numpy(valid).to(dev),
+                torch.from_numpy(boxes).to(dev),
+                torch.zeros(S, dtype=torch.int32, device=dev))
+        _, an = op_analyze.analyze(
+            lambda: pipeline.torr_multi_stream_step(*args, cfg))
+        res[dev] = an
+    a, b = res["cuda"], res["cpu"]
+    kernels = [r.name for r in a.ops if r.name in build.SIGNATURES]
+    if a.op_names() != b.op_names() or a.flops != b.flops or \
+            a.bytes_traffic != b.bytes_traffic or not kernels:
+        extra = sorted(set(a.op_names()) ^ set(b.op_names()))
+        raise AssertionError(
+            f"mesh (e): the card's analysis differs from the CPU's: "
+            f"{len(a.ops)} vs {len(b.ops)} ops (only on one: {extra}), "
+            f"FLOPs {a.flops} vs {b.flops}, bytes {a.bytes_traffic} vs "
+            f"{b.bytes_traffic}, kernels {kernels}")
+    log(f"[mesh] (e) the analyzer on the edge prefix step ({S} streams): "
+        f"{len(a.ops)} ops, {a.flops:.6g} FLOPs, {a.bytes_traffic:.6g} "
+        f"bytes on the card and on the CPU alike; kernels as one op each: "
+        f"{kernels}")
+    return dict(ops=len(a.ops), flops=a.flops, bytes=a.bytes_traffic,
+                kernels=kernels)
+
+
+def phase_mesh(report, cfg, sys_, served):
+    """Phase 18: the mesh layer on the card. (a) The train step on a 1x1
+    (data, model) mesh of a one-rank NCCL group against the plain step;
+    (b) moe_ffn_ep against moe_ffn; (c) the pipeline over a pod axis of
+    one rank; (d) the dry-run of a production cell and profile_cell; (e)
+    the op analyzer on the card and on the CPU. None of it launches a
+    hand-written kernel except (e)'s TorR step, whose launches are counted
+    from 0 around the phase (``phase18_launches``)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    build.reset_launches()
+    started = None
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        row = {"card": _smi()}
+        with _lm_flags() as flags:
+            row["flags"] = flags
+            # (a) first, alone on the host: its ms/step is mostly host time
+            row["train"] = _mesh_train(mesh)
+            started = _start_dryrun()
+            row["ep"] = _mesh_ep(mesh)
+            row["pipeline"] = _mesh_pipeline()
+        row["analyzer"] = _mesh_analyzer(cfg, sys_, served)
+    except BaseException:
+        if started is not None:     # stop the dry-run with the phase
+            started[0].kill()
+            started[0].wait()
+        raise
+    finally:
+        dist.destroy_process_group()
+    row["dryrun"] = _mesh_dryrun(started)
+    launches = dict(build.LAUNCHES)
+    for name, r in report.items():
+        r["phase18_launches"] = launches.get(name, 0)
+    log(f"[mesh] launches of the hand-written kernels in phase 18: "
+        f"{launches}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -4727,6 +5109,8 @@ def main() -> int:
     done("recurrent families and int8 decode")
     train_row = phase_train(report)
     done("LM training")
+    mesh_row = phase_mesh(report, cfg, sys_, served)
+    done("mesh layer and dry-run")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -4743,6 +5127,7 @@ def main() -> int:
     print(json.dumps({"lm_serving": lm_row}))
     print(json.dumps({"recurrent_int8": rec_row}))
     print(json.dumps({"lm_training": train_row}))
+    print(json.dumps({"mesh": mesh_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,14 @@
     fsync, then atomically rename it to ``step_{N:08d}`` — a crash mid-save
     never corrupts the latest checkpoint (the rename is the commit point).
   * restore(): loads the newest readable checkpoint into the structure of
-    a template and places every leaf on the template leaf's device, or on
-    ``device`` (the counterpart of the reference's ``shardings``).
+    a template and places every leaf on the template leaf's device, on
+    ``device``, or on a mesh (``shardings``: a tree of
+    ``runtime.sharding.Sharding``, the counterpart of the reference's
+    ``shardings``), so a checkpoint saved on one mesh restores onto
+    another.
+  * Over a mesh every rank calls save(): each DTensor leaf is gathered
+    whole, rank 0 writes the files, and the ranks meet at a barrier before
+    save returns.
   * keep_last limits disk usage; an optional async thread writes the files
     off the training loop (the copy to the host happens before it starts).
 
@@ -71,10 +77,17 @@ def _structure(tree):
     return None
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def _to_host(leaf) -> torch.Tensor:
     """A copy of ``leaf`` on the CPU (never a view of the caller's
-    memory, so a later in-place write cannot reach an async save)."""
+    memory, so a later in-place write cannot reach an async save); a
+    DTensor gathered whole first."""
     t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+    if _is_dtensor(t):
+        t = t.full_tensor()
     return t.detach().to("cpu", copy=True)
 
 
@@ -106,8 +119,16 @@ class CheckpointManager:
 
     # -- write ----------------------------------------------------------
     def save(self, step: int, tree) -> pathlib.Path:
-        named = [(n, _to_host(leaf)) for n, leaf in _flatten(tree)]
+        flat = _flatten(tree)
+        named = [(n, _to_host(leaf)) for n, leaf in flat]
         structure = _structure(tree)
+        if any(_is_dtensor(leaf) for _, leaf in flat):
+            import torch.distributed as dist
+
+            if dist.get_rank() == 0:
+                self._write(step, named, structure)
+            dist.barrier()
+            return self.dir / f"step_{step:08d}"
         if self.async_save:
             self.wait()
             t = threading.Thread(target=self._write,
@@ -204,7 +225,8 @@ class CheckpointManager:
     _TORN_ERRORS = (OSError, ValueError, KeyError, EOFError,
                     zipfile.BadZipFile)
 
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                shardings=None):
         """Restore into the structure of ``template``; returns (tree,
         step).
 
@@ -214,7 +236,9 @@ class CheckpointManager:
         previous step is restored instead — an explicit ``step`` is
         trusted and raises on damage. Each leaf takes its template leaf's
         dtype and lands on ``device``, or on the template leaf's device
-        when None.
+        when None; with ``shardings`` (``template``'s structure, a
+        ``runtime.sharding.Sharding`` a leaf) it lands as a DTensor on its
+        sharding's mesh, on that mesh's device type.
         """
         leaves = None
         if step is not None:
@@ -240,6 +264,15 @@ class CheckpointManager:
         placed = []
         for leaf, t in zip(leaves, flat_t):
             t = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
-            placed.append(leaf.to(device=t.device if device is None
-                                  else device, dtype=t.dtype))
-        return _unflatten(template, placed), step
+            dev = t.device if device is None else device
+            if _is_dtensor(t):
+                dev = t.device_mesh.device_type
+            placed.append(leaf.to(device=dev, dtype=t.dtype))
+        tree = _unflatten(template, placed)
+        if shardings is not None:
+            from ..runtime import sharding as shd
+
+            tree = shd.distribute(
+                shd.tree_zip_map(lambda t, s: t.to(s.mesh.device_type), tree,
+                             shardings), shardings)
+        return tree, step

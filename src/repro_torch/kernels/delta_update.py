@@ -14,9 +14,12 @@ from __future__ import annotations
 
 import torch
 
+from ..perf.op_analyze import kernel_op
 from . import build, ref
 
 
+@kernel_op("delta_update",
+           lambda acc, dmajor, idx, w: 2 * idx.numel() * dmajor.shape[1])
 def delta_update(acc: torch.Tensor, dmajor: torch.Tensor, idx: torch.Tensor,
                  weight: torch.Tensor) -> torch.Tensor:
     """``acc + sum_k weight[k] * dmajor[idx[k], :]``: int32 [..., M].

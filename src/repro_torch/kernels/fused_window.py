@@ -28,11 +28,14 @@ from __future__ import annotations
 
 import torch
 
+from ..perf.op_analyze import kernel_op
 from . import build, ref
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .delta_update import delta_update
 
 
+@kernel_op("fused_scores", lambda q, h, **_: 64 * q.shape[0] * h.shape[0]
+           * q.shape[1])
 def fused_scores(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
                  d_eff: int):
     """(acc int32 [N, M], best int32 [N], top2 int32 [N, 2]) in one pass.
@@ -65,6 +68,8 @@ def fused_scores(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
     return acc, best, top2
 
 
+@kernel_op("bank_prefix_hamming", lambda q, h, **_: 64 * q.shape[0]
+           * h.shape[0] * q.shape[1])
 def bank_prefix_hamming(q_packed: torch.Tensor, im_packed: torch.Tensor, *,
                         cap: int) -> torch.Tensor:
     """Hamming over the first 1..cap banks' enabled words: int32 [N, M, cap].
@@ -99,6 +104,8 @@ def delta_apply(acc: torch.Tensor, dmajor: torch.Tensor, idx: torch.Tensor,
     return delta_update(acc, dmajor, idx, weight)
 
 
+@kernel_op("sign_project_pack", lambda z, R: 2 * z.shape[0] * z.shape[1]
+           * R.shape[0])
 def sign_project_pack(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Packed query words int32 [N, D//32] = pack(sign(z @ R.T)), bit i
     of word w = dim 32w + i, bit 1 where y >= 0 (NaN -> 0).

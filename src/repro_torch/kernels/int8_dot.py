@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..perf.op_analyze import kernel_op
 from . import build, ref
 
 NAME = "int8_dot"
@@ -56,6 +57,7 @@ def _launch(mode: int, a: torch.Tensor, c: torch.Tensor, out: torch.Tensor,
     return out
 
 
+@kernel_op(NAME, lambda a, c: 2 * a.numel() * c.shape[1])
 def rows(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """int32 [B, Hk, G, S]: every row of ``a`` int8 [B, Hk, G, K] against
     the first K codes of every row of ``c`` int8 [B, S, Hk, L >= K] of its
@@ -70,6 +72,8 @@ def rows(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return _launch(ROWS, a, c, out, S, K)
 
 
+@kernel_op(NAME, lambda p, c, k=None: 2 * p.numel()
+           * (c.shape[3] if k is None else k))
 def cols(p: torch.Tensor, c: torch.Tensor, k: int | None = None
          ) -> torch.Tensor:
     """int32 [B, Hk, G, k]: ``p`` int8 [B, Hk, G, S] weighting the rows of

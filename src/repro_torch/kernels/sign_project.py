@@ -28,9 +28,12 @@ from __future__ import annotations
 
 import torch
 
+from ..perf.op_analyze import kernel_op
 from . import build, ref
 
 
+@kernel_op("sign_project", lambda z, R: 2 * z.shape[0] * z.shape[1]
+           * R.shape[0])
 def sign_project(z: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Bipolar int8 codes [N, D] = sign(z @ R.T), sign(0) -> +1 and
     NaN -> -1.

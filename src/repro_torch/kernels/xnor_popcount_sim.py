@@ -15,9 +15,12 @@ from __future__ import annotations
 
 import torch
 
+from ..perf.op_analyze import kernel_op
 from . import build, ref
 
 
+@kernel_op("packed_hamming_batched",
+           lambda q, h: 64 * q.numel() * h.shape[-2])
 def packed_hamming_batched(q_packed: torch.Tensor,
                            im_packed: torch.Tensor) -> torch.Tensor:
     """Hamming distance of every query to every class row: int32 [..., N, M].

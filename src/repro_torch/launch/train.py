@@ -6,8 +6,12 @@ functional train step of ``runtime/steps.py`` over ``TokenStream`` batches
 under :class:`~repro_torch.runtime.fault.TrainSupervisor`, checkpoints by
 :class:`~repro_torch.checkpoint.manager.CheckpointManager` (``--ckpt``,
 default ``$TMPDIR/repro_torch_ckpt``), fault injection (``--fault-at``) and
-``--resume``. One device is one data-parallel rank: ``--data-axis`` and
-``--model-axis`` take 1 (meshes across cards are ROADMAP Queue 1 item 4).
+``--resume``. With ``--data-axis`` x ``--model-axis`` above 1 every rank
+runs this module (``torchrun --nproc-per-node N``, or any launcher that
+sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``): the
+ranks form a ("data", "model") mesh (NCCL on the card, gloo on the CPU),
+the parameters and AdamW state are placed by ``runtime/sharding.py`` and
+the step runs on DTensors.
 
 Example (smoke-size, a few hundred steps):
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
@@ -21,14 +25,17 @@ import tempfile
 import time
 
 import numpy as np
+import torch
 
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get, get_smoke
 from ..data.tokens import TokenStream
 from ..device import resolve_device
 from ..optim import adamw
+from ..runtime import sharding as shd
 from ..runtime.fault import SupervisorConfig, TrainSupervisor
 from ..runtime.steps import init_train_state, make_train_step
+from .mesh import make_host_mesh
 
 
 def parse_args(argv=None):
@@ -53,22 +60,47 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _mesh(data: int, model: int, device: torch.device):
+    """A (data, model) mesh over the ranks the launcher started."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--data-axis {data} --model-axis {model}: start one process "
+                f"a rank (torchrun --nproc-per-node {data * model}), which "
+                "sets RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="env://")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
+                                                 dist.get_rank())))
+    return make_host_mesh(data, model, device=device.type)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.data_axis != 1 or args.model_axis != 1:
-        raise SystemExit(
-            f"--data-axis {args.data_axis} --model-axis {args.model_axis}: "
-            "the port trains on one device (a mesh of 1 x 1); meshes across "
-            "cards are not ported yet (ROADMAP Queue 1 item 4)")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     opt_cfg = adamw.OptimConfig(lr=args.lr,
                                 warmup_steps=min(20, args.steps // 5),
                                 total_steps=args.steps)
 
+    mesh = None
+    if args.data_axis * args.model_axis > 1:
+        mesh = _mesh(args.data_axis, args.model_axis, device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     state = init_train_state(cfg, seed=0, device=device)
+    if mesh is not None:
+        state = {"params": shd.distribute(
+                     state["params"],
+                     shd.params_sharding(state["params"], mesh)),
+                 "opt": shd.distribute(
+                     state["opt"], shd.params_sharding(state["opt"], mesh))}
     stream = TokenStream(cfg, args.batch, args.seq)
-    step = make_train_step(cfg, opt_cfg, device=device)
+    step = make_train_step(cfg, opt_cfg, device=device, mesh=mesh)
 
     ckpt = CheckpointManager(args.ckpt, keep_last=3)
     start = 0

@@ -1,6 +1,6 @@
-"""Model zoo (port of ``repro.models``): the decoder families that serving
-needs (dense, audio, VLM, MoE with MLA). The recurrent families
-(``models/recurrent.py``) are not ported yet (ROADMAP Queue 1)."""
+"""Model zoo (port of ``repro.models``): every family of the registry
+(dense, audio, VLM, MoE with MLA, and the recurrent hybrid and ssm
+families of ``models/recurrent.py``)."""
 from . import attention, config, layers, mla, moe, transformer
 from .config import ModelConfig
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import int8_dot
+from ..runtime.spmd import gather_model, gathered_grad, per_head
 from .config import ModelConfig
 from .layers import Params, apply_rope, dense_init, recomputed, rmsnorm, \
     rope_freqs, softcap
@@ -57,22 +58,36 @@ def init_attn_params(cfg: ModelConfig, dtype, cross: bool = False,
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
          kv_src: torch.Tensor | None = None):
     """Project to per-head q, k, v. kv_src overrides the kv input (cross)."""
-    B = x.shape[0]
     kv_x = x if kv_src is None else kv_src
-    q = (x @ p.wq).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-    k = (kv_x @ p.wk).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = (kv_x @ p.wv).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    q = _heads(x @ p.wq, cfg.n_heads, cfg)
+    k = _heads(kv_x @ p.wk, cfg.n_kv_heads, cfg)
+    v = _heads(kv_x @ p.wv, cfg.n_kv_heads, cfg)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
         k = rmsnorm(k, p.k_norm, cfg.rmsnorm_eps)
     return q, k, v
 
 
+def _heads(t: torch.Tensor, n: int, cfg: ModelConfig) -> torch.Tensor:
+    """A projection [B, S, n*dh] as [B, S, n, dh] (over a mesh gathered
+    over 'model' first where ``n`` does not divide that axis)."""
+    return gather_model(t, n).reshape(t.shape[0], -1, n, cfg.head_dim)
+
+
 def _grouped(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """[B, S, H, dh] -> [B, S, Hkv, G, dh]."""
     B, S = q.shape[:2]
     g = cfg.n_heads // cfg.n_kv_heads
-    return q.reshape(B, S, cfg.n_kv_heads, g, cfg.head_dim)
+    return gather_model(q, cfg.n_kv_heads, g).reshape(
+        B, S, cfg.n_kv_heads, g, cfg.head_dim)
+
+
+def _merged(o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Grouped heads [B, S, Hkv, G, dh] as [B, S, H*dh] (over a mesh its
+    gradient whole over 'model' where their split does not divide that
+    axis)."""
+    return gathered_grad(o.reshape(*o.shape[:2], -1), cfg.n_kv_heads,
+                         cfg.n_heads // cfg.n_kv_heads)
 
 
 def _softmax(s: torch.Tensor) -> torch.Tensor:
@@ -97,8 +112,22 @@ def _attend_chunk(q_c, k, v, mask, cfg: ModelConfig):
 def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
     """Causal (and sliding-window) attention of grouped queries
     [B,S,Hkv,G,dh] over k/v, one query chunk of ``attn_chunk`` at a time
-    (the reference's scan); [B, S, H*dh]."""
-    B, S = qg.shape[:2]
+    (the reference's scan); [B, S, H*dh]. Over a mesh each rank attends
+    with its own rows and heads (``spmd.per_head``): the KV heads sharded
+    with their query groups, or a single KV head shared by query heads
+    sharded within the group."""
+    if cfg.n_kv_heads == 1:
+        o = per_head(lambda q, k, v: _causal_core(q, k, v, cfg),
+                     (qg, 3), (k, None), (v, None))
+    else:
+        o = per_head(lambda q, k, v: _causal_core(q, k, v, cfg),
+                     (qg, 2), (k, 2), (v, 2))
+    return _merged(o, cfg)
+
+
+def _causal_core(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_causal_chunks` on whole tensors: [B,S,Hkv,G,dh]."""
+    S = qg.shape[1]
     C = min(cfg.attn_chunk, S)
     if S % C:
         raise ValueError(f"prompt length {S} is not a multiple of the "
@@ -114,7 +143,7 @@ def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
         if cfg.sliding_window is not None:
             keep &= key_pos[None, :] > qpos[:, None] - cfg.sliding_window
         outs.append(attend(qg[:, c0:c0 + C], k, v, keep, cfg))
-    return torch.cat(outs, dim=1).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return torch.cat(outs, dim=1)
 
 
 def attn_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -213,8 +242,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
     else:
         pr = _softmax(s).to(cache[1].dtype)
         o = torch.einsum("bhgs,bshd->bhgd", pr, cache[1])
-    o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return o @ p.wo, cache
+    return _merged(o[:, None], cfg) @ p.wo, cache
 
 
 # ---------------------------------------------------------------------------
@@ -239,16 +267,15 @@ def cross_attn(p: Params, x: torch.Tensor, vis: torch.Tensor,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(BF16),
                      k.to(BF16)).float() * scale
     pr = _softmax(s).to(v.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v).reshape(B, S, -1)
-    return o @ p.wo
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
+    return _merged(o, cfg) @ p.wo
 
 
 def cross_attn_kv(p: Params, vis: torch.Tensor, cfg: ModelConfig):
     """Precompute cross KV from vision embeddings (cached for decode)."""
-    B = vis.shape[0]
     vis = _vision_in(rmsnorm(vis, p.kv_norm, cfg.rmsnorm_eps), p)
-    k = (vis @ p.wk).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = (vis @ p.wv).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    k = _heads(vis @ p.wk, cfg.n_kv_heads, cfg)
+    v = _heads(vis @ p.wv, cfg.n_kv_heads, cfg)
     if cfg.qk_norm:
         k = rmsnorm(k, p.k_norm, cfg.rmsnorm_eps)
     return k, v
@@ -259,7 +286,7 @@ def cross_attn_decode(p: Params, x: torch.Tensor, kv: tuple,
     """Decode-time cross-attention against cached vision KV."""
     B = x.shape[0]
     k, v = kv
-    q = (x @ p.wq).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    q = _heads(x @ p.wq, cfg.n_heads, cfg)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
     qg = _grouped(q, cfg)[:, 0]
@@ -267,5 +294,5 @@ def cross_attn_decode(p: Params, x: torch.Tensor, kv: tuple,
     s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
                      k.to(BF16)).float() * scale
     pr = _softmax(s).to(v.dtype)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, v).reshape(B, 1, -1)
-    return o @ p.wo
+    o = torch.einsum("bhgs,bshd->bhgd", pr, v)
+    return _merged(o[:, None], cfg) @ p.wo

@@ -9,6 +9,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.spmd import same_grad, whole_last
+
 
 class Params(nn.Module):
     """A named set of weights, as the reference's parameter dicts are: each
@@ -44,11 +46,16 @@ def recomputed(fn, context_fn=None):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """Normalised in float32 and scaled by ``1 + scale`` (the stored scale
-    is an offset from one, zero at init)."""
+    is an offset from one, zero at init). Over a mesh ``x`` comes whole in
+    its last dim and reduced (``spmd.whole_last``), and the gradient of
+    the result is brought to its placements (``spmd.same_grad``): the
+    residual stream and its gradient stay whole over 'model' around the
+    sharded products, Megatron's f and g."""
     dt = x.dtype
-    x = x.float()
+    x = whole_last(x).float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+    return same_grad(((x * torch.rsqrt(var + eps)) *
+                      (1.0 + scale.float())).to(dt))
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import int8_dot
+from ..runtime.spmd import gather_model, gathered_grad, per_head
 from .attention import BF16, NEG_INF, _quant_rows, _softmax
 from .config import ModelConfig
 from .layers import Params, apply_rope, dense_init, recomputed, rmsnorm, \
@@ -68,7 +69,7 @@ def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig):
         q = rmsnorm(x @ p.wq_a, p.q_norm_lora, cfg.rmsnorm_eps) @ p.wq_b
     else:
         q = x @ p.wq
-    q = q.reshape(B, S, H, dn + dr)
+    q = gather_model(q, H).reshape(B, S, H, dn + dr)
     return q[..., :dn], q[..., dn:]                              # nope, rope
 
 
@@ -96,15 +97,14 @@ def mla_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
     cos, sin = rope_freqs(dr, cfg.rope_theta, pos)
     q_rope = apply_rope(q_rope, cos, sin)
     c, k_rope = _latent(p, x, cfg, pos) if latent is None else latent
-    k_nope = (c @ p.wk_b).reshape(B, S, H, dn)
-    v = (c @ p.wv_b).reshape(B, S, H, dv)
+    k_nope = gather_model(c @ p.wk_b, H).reshape(B, S, H, dn)
+    v = gather_model(c @ p.wv_b, H).reshape(B, S, H, dv)
 
     scale = (dn + dr) ** -0.5
     C = min(cfg.attn_chunk, S)
     if S % C:
         raise ValueError(f"prompt length {S} is not a multiple of the "
                          f"attention chunk {C}")
-    key_pos = torch.arange(S, device=x.device)
 
     def chunk(qn_c, qr_c, k_nope, k_rope, v, keep):
         s = (torch.einsum("bqhd,bkhd->bhqk", qn_c.to(BF16),
@@ -116,13 +116,21 @@ def mla_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return torch.einsum("bhqk,bkhd->bqhd", pr, v)
 
     attend = recomputed(chunk) if cfg.attn_remat else chunk
-    outs = []
-    for c0 in range(0, S, C):
-        qpos = c0 + torch.arange(C, device=x.device)
-        keep = key_pos[None, :] <= qpos[:, None]
-        outs.append(attend(q_nope[:, c0:c0 + C], q_rope[:, c0:c0 + C],
-                           k_nope, k_rope, v, keep))
-    o = torch.cat(outs, dim=1).reshape(B, S, H * dv)
+
+    def core(q_nope, q_rope, k_nope, k_rope, v):
+        key_pos = torch.arange(S, device=q_nope.device)
+        outs = []
+        for c0 in range(0, S, C):
+            qpos = c0 + torch.arange(C, device=q_nope.device)
+            keep = key_pos[None, :] <= qpos[:, None]
+            outs.append(attend(q_nope[:, c0:c0 + C], q_rope[:, c0:c0 + C],
+                               k_nope, k_rope, v, keep))
+        return torch.cat(outs, dim=1)
+
+    # over a mesh each rank attends with its own rows and heads
+    o = per_head(core, (q_nope, 2), (q_rope, 2), (k_nope, 2),
+                 (k_rope, None), (v, 2))
+    o = gathered_grad(o.reshape(B, S, H * dv), H)
     return o @ p.wo
 
 

@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..perf import op_analyze
+from ..runtime.spmd import gather_model, gathered_grad, per_head
 from .config import ModelConfig
 from .layers import Params, dense_init
 
@@ -53,11 +55,11 @@ def _group_norm(h: torch.Tensor, H: int, scale: torch.Tensor,
     """Per-head normalisation of [..., H*dh] (population variance, eps
     1e-6), times ``scale``, cast to ``dtype``."""
     lead, width = h.shape[:-1], h.shape[-1]
-    hg = h.reshape(*lead, H, width // H)
+    hg = gather_model(h, H).reshape(*lead, H, width // H)
     mu = torch.mean(hg, dim=-1, keepdim=True)
     var = torch.var(hg, dim=-1, keepdim=True, correction=0)
     hn = ((hg - mu) * torch.rsqrt(var + 1e-6)).reshape(*lead, width)
-    return (hn * scale).to(dtype)
+    return (gathered_grad(hn, H) * scale).to(dtype)
 
 
 def _conv_step(hist: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
@@ -102,12 +104,14 @@ def init_rglru_params(cfg: ModelConfig, dtype,
 
 def _causal_conv_train(v: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv via shifted adds (the reference's order).
-    v: [B, S, w]."""
+    v: [B, S, w]. Each shift is the sequence's head cut off and zeros put
+    in front (not ``F.pad``, whose sharding DTensor may not propagate)."""
     S = v.shape[1]
     out = torch.zeros_like(v)
     W = conv_w.shape[0]
     for j in range(W):
-        shifted = F.pad(v, (0, 0, j, 0))[:, :S]
+        shifted = torch.cat([torch.zeros_like(v[:, :j]), v[:, :S - j]],
+                            dim=1) if j else v
         out = out + shifted * conv_w[W - 1 - j]
     return out
 
@@ -249,8 +253,9 @@ def _mlstm_chunk_scan(q, k, v, ig, fg, chunk: int):
     np_ = torch.zeros((B, H, dh), dtype=F32, device=dev)
     mp = torch.full((B, H), -1e30, dtype=F32, device=dev)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
-    hs = []
-    for c0 in range(0, S, L):
+
+    def chunk_step(state, c0):
+        Cp, np_, mp = state
         qq, kk, vv = q[:, c0:c0 + L], k[:, c0:c0 + L], v[:, c0:c0 + L]
         ii, ff = ig[:, c0:c0 + L], fg[:, c0:c0 + L]          # [B,L,H]
         b = torch.cumsum(ff, dim=1)                          # cumulative log-f
@@ -269,8 +274,7 @@ def _mlstm_chunk_scan(q, k, v, ig, fg, chunk: int):
         num = intra + qC * inter_scale[..., None]
         den = torch.sum(A, dim=2) + \
             torch.einsum("bthd,bhd->bth", qq, np_) * inter_scale
-        hs.append(num / torch.maximum(torch.abs(den),
-                                      torch.exp(-m_t))[..., None])
+        h = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
         # state to end of chunk
         gL = g[:, -1, :]                                     # [B,H]
         wL = torch.exp(u - gL[:, None, :])                   # [B,L,H]
@@ -280,7 +284,16 @@ def _mlstm_chunk_scan(q, k, v, ig, fg, chunk: int):
             torch.einsum("bshd,bshe->bhde", kw, vv)
         np_ = decay[..., None] * np_ + torch.sum(kw, dim=1)
         mp = b[:, -1, :] + gL
+        return (Cp, np_, mp), h
+
+    (Cp, np_, mp), hs = op_analyze.scan(chunk_step, (Cp, np_, mp),
+                                        range(0, S, L))
     return torch.cat(hs, dim=1), (Cp, np_, mp)
+
+
+def _flat_scan(q, k, v, ig, fg, chunk: int):
+    h, (Cf, nf, mf) = _mlstm_chunk_scan(q, k, v, ig, fg, chunk)
+    return h, Cf, nf, mf
 
 
 def _mlstm_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -292,15 +305,18 @@ def _mlstm_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
     xc = F.silu(_causal_conv_train(xm, p.conv_w))
     din = xm.shape[-1]
     dh = din // H
-    xch = xc.reshape(B, S, H, dh)
-    xmh = xm.reshape(B, S, H, dh)
+    xch = gather_model(xc, H).reshape(B, S, H, dh)
+    xmh = gather_model(xm, H).reshape(B, S, H, dh)
     q = torch.einsum("bshd,hde->bshe", xch, p.wq)
     k = torch.einsum("bshd,hde->bshe", xch, p.wk)
     v = torch.einsum("bshd,hde->bshe", xmh, p.wv)
     gates = (xm.float() @ p.w_if).reshape(B, S, H, 2)
     ig = gates[..., 0]
     fg = F.logsigmoid(gates[..., 1])
-    h, (Cf, nf, mf) = _mlstm_chunk_scan(q, k, v, ig, fg, cfg.mlstm_chunk)
+    # over a mesh each rank scans its own rows and heads
+    h, Cf, nf, mf = per_head(
+        lambda *a: _flat_scan(*a, cfg.mlstm_chunk), (q, 2), (k, 2), (v, 2),
+        (ig, 2), (fg, 2), out_heads=(2, 1, 1, 1))
     hn = _group_norm(h.reshape(B, S, din), H, p.gn_scale, x.dtype)
     y = (hn * F.silu(z)) @ p.w_down
     cw = cfg.conv_width - 1
@@ -339,8 +355,8 @@ def mlstm_decode(p: Params, x: torch.Tensor, state: dict, cfg: ModelConfig):
     xc = F.silu(_conv_step(_shift_in(state["conv"], xm), p.conv_w))
     din = xm.shape[-1]
     dh = din // H
-    xch = xc.reshape(B, H, dh)
-    xmh = xm.reshape(B, H, dh)
+    xch = gather_model(xc, H).reshape(B, H, dh)
+    xmh = gather_model(xm, H).reshape(B, H, dh)
     q = torch.einsum("bhd,hde->bhe", xch, p.wq).float() * dh ** -0.5
     k = torch.einsum("bhd,hde->bhe", xch, p.wk).float()
     v = torch.einsum("bhd,hde->bhe", xmh, p.wv).float()
@@ -414,7 +430,7 @@ def _slstm_cell(p: Params, x_t: torch.Tensor, st: dict,
     B, d = st["h"].shape[0], cfg.d_model
     H = cfg.n_heads
     dh = d // H
-    hr = st["h"].reshape(B, H, dh)
+    hr = gather_model(st["h"], H).reshape(B, H, dh)
     rec = torch.einsum("bhd,hde->bhe", hr, p.r_ifzo).reshape(B, 4 * d)
     pre = x_t.float() + rec + p.b_ifzo
     it, ft, zt, ot = torch.split(pre, d, dim=-1)
@@ -443,12 +459,13 @@ def slstm_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """sLSTM block over [B,S,d] returning (y, final cell state): one cell
     step a token, as the reference's scan."""
     B, S, _ = x.shape
-    xg = x @ p.w_ifzo                                        # [B,S,4d]
-    st = slstm_init_state(cfg, B, x.device)
-    hs = []
-    for t in range(S):
+    xg = gather_model(x @ p.w_ifzo, cfg.n_heads)             # [B,S,4d]
+    def step(st, t):
         st = _slstm_cell(p, xg[:, t], st, cfg)
-        hs.append(st["h"])
+        return st, st["h"]
+
+    st, hs = op_analyze.scan(step, slstm_init_state(cfg, B, x.device),
+                             range(S))
     return _slstm_out(p, torch.stack(hs, dim=1), cfg, x.dtype), st
 
 
@@ -459,7 +476,7 @@ def slstm_train(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def slstm_decode(p: Params, x: torch.Tensor, state: dict, cfg: ModelConfig):
     """One-step sLSTM block. x: [B, 1, d]; ``state`` updated in place."""
-    xg = (x @ p.w_ifzo)[:, 0]
+    xg = gather_model((x @ p.w_ifzo)[:, 0], cfg.n_heads)
     new = _slstm_cell(p, xg, state, cfg)
     for k, t in new.items():
         state[k].copy_(t)

@@ -16,9 +16,9 @@ place.
 Public API (``params`` is the :class:`~.layers.Params` tree that
 :func:`init_params` returns):
     init_params(cfg, generator, device)              -> params
-    forward_train(params, batch, cfg)                -> (loss, metrics)
+    forward_train(params, batch, cfg, mesh)          -> (loss, metrics)
     init_cache(cfg, B, S_max, device)                -> decode cache
-    prefill(params, batch, cfg, s_max)               -> (cache, last_logits)
+    prefill(params, batch, cfg, s_max, mesh)         -> (cache, last_logits)
     decode_step(params, cache, tokens, cfg,
                 return_hidden)                       -> (cache, logits[, h])
 
@@ -60,6 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..runtime.spmd import gather_model, lookup
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -202,9 +203,9 @@ def _embed_tokens(params: Params, batch: dict, cfg: ModelConfig):
     if cfg.family == "audio":
         # sum of codebook embeddings; tokens [B, S, ncb]
         books = torch.arange(cfg.n_codebooks, device=tokens.device)
-        x = params.embed[books, tokens].sum(dim=2)
+        x = lookup(params.embed, tokens, books)
     else:
-        x = params.embed[tokens]
+        x = lookup(params.embed, tokens)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the model's dtype first, as the
         # reference's asarray(sqrt(d), x.dtype) is (55.5 at gemma-7b in bf16)
@@ -219,7 +220,8 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig):
     unembed = params.unembed if "unembed" in params else params.embed.T
     logits = (h @ unembed).float()
     if cfg.family == "audio":
-        logits = logits.reshape(-1, cfg.n_codebooks, cfg.vocab)
+        logits = gather_model(logits, cfg.n_codebooks).reshape(
+            -1, cfg.n_codebooks, cfg.vocab)
     return logits
 
 
@@ -265,7 +267,8 @@ def _mlp(p: Params, x, cfg: ModelConfig):
 
 
 def _apply_position_train(p: Params, kind: str, x, cfg: ModelConfig,
-                          vision) -> tuple[torch.Tensor, torch.Tensor]:
+                          vision, mesh=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer over the whole sequence; returns (x', aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p.ln1, cfg.rmsnorm_eps)
@@ -279,7 +282,7 @@ def _apply_position_train(p: Params, kind: str, x, cfg: ModelConfig,
     elif kind == "moe":
         x = x + mla_mod.mla_train(p.attn, h, cfg)
         y, aux = moe_mod.moe_ffn(p.moe, rmsnorm(x, p.ln2, cfg.rmsnorm_eps),
-                                 cfg)
+                                 cfg, mesh=mesh)
         x = x + y
     elif kind == "rglru":
         x = _mlp(p, x + rec.rglru_train(p.rec, h, cfg), cfg)
@@ -297,8 +300,9 @@ LOSS_CHUNK = 512
 
 def _chunk_ce(xc, unembed, lc, cfg: ModelConfig):
     logits = xc @ unembed
-    if cfg.family == "audio":
-        logits = logits.reshape(*xc.shape[:2], cfg.n_codebooks, cfg.vocab)
+    if cfg.family == "audio":      # over a mesh the split gathered first
+        logits = gather_model(logits, cfg.n_codebooks).reshape(
+            *xc.shape[:2], cfg.n_codebooks, cfg.vocab)
     return cross_entropy(logits, lc)
 
 
@@ -323,7 +327,8 @@ def _logits_chunked(params: Params, x, cfg: ModelConfig, labels):
     return tot
 
 
-def forward_train(params: Params, batch: dict, cfg: ModelConfig):
+def forward_train(params: Params, batch: dict, cfg: ModelConfig,
+                  mesh=None):
     """Next-token LM loss (audio: per-codebook CE; vlm: text CE); returns
     (loss, metrics) with ``lm_loss``, ``aux_loss`` (the MoE load-balance
     term, summed over the MoE layers), ``mtp_loss`` (MTP only) and
@@ -333,7 +338,9 @@ def forward_train(params: Params, batch: dict, cfg: ModelConfig):
     ``batch`` holds tensors on the parameters' device. ``vision`` is cast
     to the model's dtype first: the reference's trainer feeds it float32
     (``data/tokens.py``), which promotes its residual stream and breaks
-    its bfloat16 scan (ROADMAP Queue 3)."""
+    its bfloat16 scan (ROADMAP Queue 3). With ``mesh`` (the parameters
+    and batch DTensors on it) an MoE layer of a config with ``moe_groups``
+    runs expert-parallel (``moe.moe_ffn_ep``), as the reference's does."""
     x = _embed_tokens(params, batch, cfg)
     vision = batch.get("vision")
     if vision is not None:
@@ -346,7 +353,7 @@ def forward_train(params: Params, batch: dict, cfg: ModelConfig):
     def group_body(h, aux_sum, group):
         for i, kind in enumerate(pattern):
             h, aux = _apply_position_train(group[f"{kind}_{i}"], kind, h,
-                                           cfg, vision)
+                                           cfg, vision, mesh)
             aux_sum = aux_sum + aux
         return h, aux_sum
 
@@ -367,7 +374,7 @@ def forward_train(params: Params, batch: dict, cfg: ModelConfig):
     if cfg.family == "moe" and cfg.mtp_depth and "labels_mtp" in batch:
         # MTP: predict t+2 from [h_t ; emb(t_{t+1})]
         mtp = params.mtp
-        emb_next = params.embed[batch["tokens_next"].long()]
+        emb_next = lookup(params.embed, batch["tokens_next"].long())
         h_in = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mtp.proj
         h_mtp, _ = _apply_position_train(mtp.block, "self", h_in, cfg,
                                          vision)
@@ -620,13 +627,18 @@ def _store(dst, new, S: int, kind: str) -> None:
         dst.copy_(new)
     elif kind == "local_attn":
         _to_ring(dst, new)
+    elif dst.shape[1] != S and type(dst) is not torch.Tensor:
+        # a DTensor cache (its S may be sharded): one in-place write of
+        # the rows, not a copy into a slice that DTensor may redistribute
+        dst.index_copy_(1, torch.arange(S, device=dst.device),
+                        new.to(dst.dtype))
     else:
         dst[:, :S] = new
 
 
 @torch.no_grad()
 def prefill(params: Params, batch: dict, cfg: ModelConfig,
-            s_max: int | None = None):
+            s_max: int | None = None, mesh=None):
     """Process a full prompt; returns (cache, last-position logits).
 
     ``s_max``: decode-cache capacity (>= prompt length); defaults to the
@@ -636,7 +648,9 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
     the cache is the float one (the reference's prefill returns it so).
     The VLM's cross KV (``cross_attn_kv`` of the vision embeddings) is
     stored in ``cache["cross_kv"]`` for decode (the reference leaves it
-    zero: ROADMAP Queue 3)."""
+    zero: ROADMAP Queue 3). With ``mesh`` (parameters and batch DTensors
+    on it) the cache is built on the mesh, placed by
+    ``runtime.sharding.cache_sharding``."""
     tokens = batch["tokens"]
     B, S = tokens.shape[:2]
     x = _embed_tokens(params, batch, cfg)
@@ -650,6 +664,9 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             raise ValueError(f"s_max {cache_S} is below the prompt length "
                              f"{S}")
     cache = _init_cache(cfg, B, cache_S, x.device, quant=False)
+    if mesh is not None:
+        from ..runtime import sharding as shd
+        cache = shd.distribute(cache, shd.cache_sharding(cache, mesh))
 
     for j, p in enumerate(params.dense_prefix
                           if "dense_prefix" in params else ()):

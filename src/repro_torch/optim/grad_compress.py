@@ -1,6 +1,6 @@
 """Gradient compression for the data-parallel reduction: int8 QSGD with
 error feedback (port of ``repro.optim.grad_compress`` over a
-``torch.distributed`` process group instead of a mesh axis).
+``torch.distributed`` process group: a mesh axis's).
 
 Each tensor is quantized to int8 with one float32 scale (4x fewer bytes
 than float32, 2x fewer than bfloat16), and the quantization residual is kept
@@ -10,9 +10,10 @@ uncompressed trajectory (Karimireddy et al.-style EF).
 :func:`compressed_psum` quantizes, all-gathers the int8 codes and the
 scales over the group and sums them dequantized locally: with k ranks that
 moves k*(n/4) float32-equivalent bytes instead of the ~2n of a ring
-all-reduce. The gather is injectable (``gather=``), so k shards can be
-summed in one process. One card is a group of one (ROADMAP Queue 1 item 4
-holds the meshes across cards).
+all-reduce. ``group`` is the counterpart of the reference's axis name: a
+mesh axis's group (``mesh.get_group("data")``, or ``"pod"`` across pods)
+or any process group. The gather is injectable (``gather=``), so k shards
+can be summed in one process.
 """
 from __future__ import annotations
 

@@ -312,8 +312,11 @@ def test_moe_without_shared_experts_and_mesh_refused():
            J["moe_ffn"](jp, jnp.asarray(x), jcfg)[0], "moe no shared")
     assert tmoe.capacity(16, dataclasses.replace(
         cfg, n_experts=4, moe_top_k=2, capacity_factor=1.5)) == 16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_ffn(tp, _t(x), cfg, mesh=object())
+    # a mesh without moe_groups takes the global routing, as the
+    # reference's moe_ffn does (moe_ffn_ep: tests/test_torch_mesh_run.py)
+    assert cfg.moe_groups == 0
+    torch.testing.assert_close(tmoe.moe_ffn(tp, _t(x), cfg, mesh=object()),
+                               tmoe.moe_ffn(tp, _t(x), cfg), rtol=0, atol=0)
 
 
 def test_params_round_trip_through_numpy():

@@ -71,7 +71,7 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
         steps.make_train_step(cfg, adamw.OptimConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(ARGS[:-4])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train.main(ARGS + ["--data-axis", "2"])
     state = steps.init_train_state(cfg, device="cpu")
     step = steps.make_train_step(cfg, adamw.OptimConfig(), device="cpu")
