@@ -250,6 +250,23 @@ bit:
      --smoke --steps 40`` in a subprocess prints "loss improved". The
      rules are the constants above ``phase_train``. Training launches
      none of the hand-written kernels (``phase17_launches``, all 0).
+ 18. the mesh layer (run after 17, before 19; ``phase_mesh``): (a)-(e)
+     on a one-rank NCCL group and the dry-run; (f) one decode step of
+     musicgen-large's and llama-3.2-vision-90b's smoke configs (float32,
+     float32 scores) on a 2x2 ("data", "model") gloo mesh of 4 spawned CPU
+     ranks under this host's torch, against the plain step: logits and
+     every cache tensor within 1e-4 of its largest magnitude, within 45 s.
+ 19. the stream-sharded async engine (run after 18, before 10;
+     ``phase_stream_mesh``): ``AsyncStreamEngine(mesh=)`` at the edge
+     config, 15 streams padded to 16 slots over every visible card (one
+     card: two shards on cuda:0, each with its own stream and graph
+     family), on the prefix and compact lowerings over both traffics'
+     packed words: outputs, telemetry and final caches bit-equal to the
+     unsharded async engine in as many slots, ms/step of both, each
+     shard's ``bank_prefix_hamming`` and ``packed_hamming_batched``
+     launches (``phase19_shard<k>_launches``); the launcher refuses
+     ``--mesh`` above the card count and serves ``--mesh -1``; within
+     60 s.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
@@ -4617,6 +4634,15 @@ EP_OF_MAX = 2.0 ** -7
 PIPE_LAYERS, PIPE_D, PIPE_MICRO, PIPE_MB = 4, 1024, 4, 8
 DRYRUN_ARCH, DRYRUN_SHAPE = "deepseek-7b", "train_4k"
 DRYRUN_FLOPS_RATIO = 2.0    # (d): the most FLOPs over model_flops
+# (f): a 2x2 ("data", "model") gloo mesh of 4 CPU ranks under the card
+# host's torch; the smoke configs whose decode attention DTensor could not
+# shard there before the decode cores ran through spmd.per_head; decode
+# within 1e-4 of each tensor's largest magnitude (tests/test_torch_
+# mesh_run.py's rule, float32 with float32 score products)
+MESH_DECODE_ARCHS = ("musicgen-large", "llama-3.2-vision-90b")
+MESH_DECODE_TOL = 1e-4
+MESH_DECODE_LIMIT_S = 45.0
+MESH_DECODE_B, MESH_DECODE_S = 4, 16
 
 
 def _free_port() -> int:
@@ -4946,14 +4972,129 @@ def _mesh_analyzer(cfg, sys_, served) -> dict:
                 kernels=kernels)
 
 
+def _mesh_decode_rank(rank, world, port, out_path):
+    """(f) One rank of the 2x2 gloo mesh (a spawned process, the CPU only,
+    one thread): for each of MESH_DECODE_ARCHS' smoke configs in float32,
+    a plain prefill, then one decode step plain and one on the mesh from
+    copies of that cache; every rank gathers the mesh step's logits and
+    cache, rank 0 writes each tensor's largest difference and magnitude."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention, mla
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import steps
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(2, 2, device="cpu")
+        attention.BF16 = mla.BF16 = torch.float32
+        res = {}
+        for arch in MESH_DECODE_ARCHS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+            params = tf.init_params(cfg, torch.Generator().manual_seed(5),
+                                    "cpu")
+            _lm_offsets(params, torch.Generator().manual_seed(6))
+            flat = dict(params.state_dict())
+            prompt = _lm_prompt(cfg, MESH_DECODE_B, MESH_DECODE_S, 7, "cpu")
+            cache, _ = steps.make_prefill(
+                cfg, s_max=MESH_DECODE_S + 8)(flat, prompt)
+            tok = prompt["tokens"][:, -1]
+            outs = {}
+            for label, m in (("plain", None), ("mesh", mesh)):
+                c, logits = steps.make_decode_step(cfg, mesh=m)(
+                    flat, copy.deepcopy(cache), tok)
+                outs[label] = [
+                    (t.full_tensor() if isinstance(t, DTensor) else t)
+                    .detach().double()
+                    for t in [logits] + _lm_leaves(c)]
+            res[arch] = dict(
+                seconds=time.perf_counter() - t0,
+                errs=[(float((a - b).abs().max()), float(b.abs().max()))
+                      for a, b in zip(outs["mesh"], outs["plain"])])
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_mesh_decode():
+    """(f) Start the 4 ranks (spawned, so no rank inherits the card)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "decode.pkl")
+    ctx = mp.spawn(_mesh_decode_rank, args=(4, _free_port(), out), nprocs=4,
+                   join=False)
+    return ctx, tmp, out, time.perf_counter()
+
+
+def _mesh_decode(started) -> dict:
+    """(f) Wait for the ranks (at most MESH_DECODE_LIMIT_S from their
+    start, else they are killed and the phase fails) and hold the mesh
+    decode step to the plain one."""
+    import pickle
+
+    ctx, tmp, out, t0 = started
+    try:
+        while not ctx.join(timeout=max(0.1, t0 + MESH_DECODE_LIMIT_S
+                                       - time.perf_counter())):
+            if time.perf_counter() - t0 > MESH_DECODE_LIMIT_S:
+                raise AssertionError(
+                    f"mesh (f): the 2x2 decode ranks took over "
+                    f"{MESH_DECODE_LIMIT_S} s")
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            res = pickle.load(f)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        tmp.cleanup()
+    rows = {}
+    for arch, r in res.items():
+        worst = max(e / max(m, 1e-30) for e, m in r["errs"])
+        if worst > MESH_DECODE_TOL:
+            raise AssertionError(f"mesh (f): {arch} decode on 2x2 is "
+                                 f"{worst:.3g} of a tensor's largest "
+                                 f"magnitude from the plain step")
+        rows[arch] = dict(worst_of_max=worst, tensors=len(r["errs"]),
+                          seconds=r["seconds"])
+    log(f"[mesh] (f) one decode step of {', '.join(res)} (smoke, float32, "
+        f"float32 scores, batch {MESH_DECODE_B}, prompt {MESH_DECODE_S}) on "
+        f"a 2x2 gloo mesh of 4 CPU ranks, torch {torch.__version__}: "
+        f"logits and every cache tensor within "
+        + ", ".join(f"{a} {r['worst_of_max']:.3g} ({r['tensors']} tensors, "
+                    f"{r['seconds']:.1f} s)" for a, r in rows.items())
+        + f" of its largest magnitude (rule {MESH_DECODE_TOL}); "
+        f"{wall:.1f} s with the ranks' start")
+    return dict(archs=rows, seconds=wall, torch=torch.__version__)
+
+
 def phase_mesh(report, cfg, sys_, served):
     """Phase 18: the mesh layer on the card. (a) The train step on a 1x1
     (data, model) mesh of a one-rank NCCL group against the plain step;
     (b) moe_ffn_ep against moe_ffn; (c) the pipeline over a pod axis of
     one rank; (d) the dry-run of a production cell and profile_cell; (e)
-    the op analyzer on the card and on the CPU. None of it launches a
-    hand-written kernel except (e)'s TorR step, whose launches are counted
-    from 0 around the phase (``phase18_launches``)."""
+    the op analyzer on the card and on the CPU; (f) one decode step of
+    musicgen-large's and llama-3.2-vision-90b's smoke configs on a 2x2
+    gloo mesh of 4 CPU ranks against the plain step (started after (e),
+    beside the dry-run's wait). None of it launches a hand-written kernel
+    except (e)'s TorR step, whose launches are counted from 0 around the
+    phase (``phase18_launches``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import build
@@ -4981,13 +5122,166 @@ def phase_mesh(report, cfg, sys_, served):
         raise
     finally:
         dist.destroy_process_group()
-    row["dryrun"] = _mesh_dryrun(started)
+    try:
+        decode = _start_mesh_decode()
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    try:
+        row["dryrun"] = _mesh_dryrun(started)
+    finally:
+        row["decode_2x2"] = _mesh_decode(decode)
     launches = dict(build.LAUNCHES)
     for name, r in report.items():
         r["phase18_launches"] = launches.get(name, 0)
     log(f"[mesh] launches of the hand-written kernels in phase 18: "
         f"{launches}")
     return row
+
+
+# phase 19: the stream-sharded async engine at torr_edge(): 15 streams
+# padded to a multiple of the shard count, over every visible card (two
+# shards on cuda:0 with one card)
+MESH_STREAMS = 15
+MESH_PHASE_LIMIT_S = 60.0
+MESH_KERNELS = ("bank_prefix_hamming", "packed_hamming_batched")
+
+
+def _card_stream_mesh():
+    """Every visible card, or two shards on cuda:0 with one card."""
+    from repro_torch.runtime import sharding as shd
+
+    if torch.cuda.device_count() == 1:
+        return shd.stream_mesh(devices=["cuda:0", "cuda:0"])
+    return shd.stream_mesh()
+
+
+def _mesh_serve(cfg, sys_, frames, words, n_slots, mesh, **kw):
+    """A paused ``AsyncStreamEngine`` in ``n_slots`` slots (sharded over
+    ``mesh``, or not), warmed up, every window of ``frames`` queued, then
+    its workers started: the results, the final cache, ms/step (start to
+    the end of ``flush`` and the streams' sync), the steps and each
+    shard's launches of the served run (from its graph family)."""
+    from repro_torch.serving.async_engine import AsyncStreamEngine
+
+    S, T = len(frames), len(frames[0])
+    eng = AsyncStreamEngine(cfg, sys_.im, n_slots=n_slots, mesh=mesh,
+                            paused=True, **kw)
+    try:
+        eng.warmup()
+        fams = [sh.graphs for sh in eng.shards] if eng.shards else \
+            [eng.graphs]
+        before = [dict(f.launches) for f in fams]
+        _admit_all(eng, sys_, S)
+        futs = _submit_futures(eng, frames, words, T)
+        t0 = time.perf_counter()
+        eng.start()
+        eng.flush(timeout=600)
+        eng.sync()
+        wall = time.perf_counter() - t0
+        launches = [{k: f.launches.get(k, 0) - b.get(k, 0)
+                     for k in MESH_KERNELS} for f, b in zip(fams, before)]
+        res = {sid: [f.result(timeout=60) for f in fs]
+               for sid, fs in futs.items()}
+        cache = eng.state.cache
+        steps = eng.stats.steps
+    finally:
+        eng.close()
+    return res, cache, 1e3 * wall / steps, steps, launches, eng.n_slots
+
+
+def _mesh_cli():
+    """The launcher's ``--mesh``: N above the card count refused, then
+    ``--mesh -1`` (every card) served."""
+    import io
+
+    from repro_torch.launch import serve
+
+    n = torch.cuda.device_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            serve.main(["--torr-streams", "2", "--torr-frames", "1",
+                        "--mesh", str(n + 1)])
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    if code != 2 or f"requested {n + 1} devices, only {n} present" \
+            not in err.getvalue():
+        raise AssertionError(f"mesh cli: --mesh {n + 1} on {n} card(s) was "
+                             f"not refused ({code}): {err.getvalue()!r}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--torr-streams", str(MESH_STREAMS), "--torr-frames",
+                    "2", "--mesh", "-1"])
+    lines = [ln for ln in out.getvalue().splitlines() if "slots=" in ln]
+    want = -(-MESH_STREAMS // n) * n
+    if not lines or "mode=async" not in lines[0] or \
+            f"slots={want}" not in lines[0] or "LOST" in out.getvalue():
+        raise AssertionError(f"mesh cli: --mesh -1 printed {lines}")
+    return lines[0].removeprefix("[serve/torr] ")
+
+
+def phase_stream_mesh(cfg, sys_, cases, report):
+    """Phase 19: ``AsyncStreamEngine(mesh=)`` at the edge config, 15
+    streams padded to the shards, over every visible card (one card: two
+    shards on cuda:0): the prefix and compact lowerings on the served and
+    the reuse traffic (phases 3 and 4's packed words), each against the
+    unsharded async engine in as many slots, outputs, telemetry and final
+    caches bit-equal; ms/step of both; each shard's launches of
+    ``bank_prefix_hamming`` and ``packed_hamming_batched``, every shard
+    launching its lowering's kernels; then the CLI's ``--mesh``."""
+    from repro_torch.runtime import sharding as shd
+
+    t0 = time.perf_counter()
+    mesh = _card_stream_mesh()
+    rows = []
+    for label, frames, words, kw, kernels in cases:
+        frames = frames[:MESH_STREAMS]
+        res_m, cache_m, ms_m, steps_m, per_shard, n_slots = _mesh_serve(
+            cfg, sys_, frames, words, MESH_STREAMS, mesh, **kw)
+        res_u, cache_u, ms_u, steps_u, _, _ = _mesh_serve(
+            cfg, sys_, frames, words, n_slots, None, **kw)
+        if steps_m != steps_u or any(
+                len(res_m[sid]) != len(res_u[sid]) for sid in res_u):
+            raise AssertionError(f"stream mesh {label}: {steps_m} sharded "
+                                 f"steps against {steps_u}")
+        _assert_results_equal(f"stream mesh {label}", res_m, res_u)
+        _assert_caches_equal(f"stream mesh {label}", cache_m, cache_u)
+        for k, launched in enumerate(per_shard):
+            for name in kernels:
+                if launched[name] < steps_m:
+                    raise AssertionError(
+                        f"stream mesh {label}: shard {k} launched {name} "
+                        f"{launched[name]} times in {steps_m} steps")
+        rows.append(dict(label=label, steps=steps_m, slots=n_slots,
+                         sharded_ms_per_step=ms_m,
+                         unsharded_ms_per_step=ms_u,
+                         launches_per_shard=per_shard))
+        log(f"[stream mesh] {label}: {MESH_STREAMS} streams in {n_slots} "
+            f"slots, {len(mesh)} shards: outputs, telemetry and final "
+            f"caches bit-equal to the unsharded async engine; {steps_m} "
+            f"steps, ms/step sharded {ms_m:.2f} / unsharded {ms_u:.2f}; "
+            f"launches a shard {per_shard}")
+    for r in rows:
+        for k, launched in enumerate(r["launches_per_shard"]):
+            for name, n in launched.items():
+                key = f"phase19_shard{k}_launches"
+                report[name][key] = report[name].get(key, 0) + n
+    cli = _mesh_cli()
+    wall = time.perf_counter() - t0
+    layout = [f"{sh} slots {lo}-{hi - 1}" for sh, (lo, hi) in zip(
+        mesh, shd.stream_rows(rows[0]["slots"], mesh))]
+    log(f"[stream mesh] {torch.cuda.device_count()} card(s), "
+        f"{len(mesh)} shards: {layout}; CLI: {cli}; {wall:.1f} s")
+    if wall > MESH_PHASE_LIMIT_S:
+        raise AssertionError(f"stream mesh: {wall:.1f} s, over "
+                             f"{MESH_PHASE_LIMIT_S} s")
+    return dict(cards=torch.cuda.device_count(), shards=[str(d) for d in
+                                                         mesh],
+                layout=layout, rows=rows, cli=cli, seconds=wall)
 
 
 def main() -> int:
@@ -5110,7 +5404,16 @@ def main() -> int:
     train_row = phase_train(report)
     done("LM training")
     mesh_row = phase_mesh(report, cfg, sys_, served)
-    done("mesh layer and dry-run")
+    done("mesh layer, dry-run and the 2x2 decode")
+    stream_mesh_row = phase_stream_mesh(cfg, sys_, (
+        ("prefix, served", served, base[2], {}, ("bank_prefix_hamming",)),
+        ("prefix, reuse", reuse, base_reuse[2], {},
+         ("bank_prefix_hamming",)),
+        ("compact, served", served, base[2], dict(fused="compact"),
+         compact_kernels),
+        ("compact, reuse", reuse, base_reuse[2], dict(fused="compact"),
+         compact_kernels)), report)
+    done("stream-sharded engine")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -5128,6 +5431,7 @@ def main() -> int:
     print(json.dumps({"recurrent_int8": rec_row}))
     print(json.dumps({"lm_training": train_row}))
     print(json.dumps({"mesh": mesh_row}))
+    print(json.dumps({"stream_mesh": stream_mesh_row}))
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,14 @@ lock): entering a capture syncs the card and empties the caching
 allocator, which must not happen while another thread captures, as it
 can when a supervisor's rebuilt engine captures beside an abandoned
 engine's dispatcher. ``captures`` records each capture's segment name and
-seconds.
+seconds. A family captures on a capture stream of its own on the
+current device, not ``torch.cuda.graph``'s default (one stream for the
+process, made on whichever device captured first): a family captured
+under ``torch.cuda.device(k)`` records on card k, and cuBLAS's workspace,
+which PyTorch keys by the capturing stream and a graph keeps, is the
+family's own, so two families' graphs may replay at once on two streams
+(the sharded async engine keeps one family a shard, two on one card with
+one card).
 
 No fallback: a capture or replay error raises; nothing reruns the step
 eagerly. On the CPU there is no graph: :data:`EAGER` runs each segment as
@@ -166,15 +173,19 @@ class GraphFamily:
     """One captured CUDA graph per segment key, replayed on later calls.
 
     ``replays`` and ``nodes_replayed`` count on the host, like
-    ``LAUNCHES``: the graphs replayed and their kernel nodes; ``captures``
-    holds (segment name, seconds) of every capture, its side-stream
-    warm-up and instantiation included."""
+    ``LAUNCHES``: the graphs replayed and their kernel nodes;
+    ``launches`` the kernel launches its replays ran, by kernel (the
+    family's own share of ``LAUNCHES``); ``captures`` holds (segment
+    name, seconds) of every capture, its side-stream warm-up and
+    instantiation included."""
 
     def __init__(self):
         self._entries: dict = {}
         self.replays = 0
         self.nodes_replayed = 0
+        self.launches: dict = {}
         self.captures: list = []
+        self._capture_streams: dict = {}    # device index -> its stream
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -207,12 +218,12 @@ class GraphFamily:
         entry.graph.replay()
         for name, n in entry.launches.items():
             build.LAUNCHES[name] += n
+            self.launches[name] = self.launches.get(name, 0) + n
         self.replays += 1
         self.nodes_replayed += entry.kernel_nodes
         return tree_map(torch.clone, entry.outputs)
 
-    @staticmethod
-    def _capture(fn, inputs) -> Entry:
+    def _capture(self, fn, inputs) -> Entry:
         static_in = tree_map(torch.clone, inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -222,8 +233,12 @@ class GraphFamily:
         before = dict(build.LAUNCHES)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
+            index = torch.cuda.current_device()
+            stream = self._capture_streams.get(index)
+            if stream is None:
+                stream = self._capture_streams[index] = torch.cuda.Stream()
             with _capture_lock, collection_paused(), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
+                    graph, stream=stream, capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         finally:
             captured = {k: n - before[k] for k, n in build.LAUNCHES.items()}

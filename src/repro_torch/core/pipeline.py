@@ -596,7 +596,7 @@ def _compact_finish(state: TorrState, q, v, b, qd, gates, dec, aux, *,
 
 def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
                                qd, cfg: TorrConfig, *, serial: bool, plan,
-                               bucket_cap, decide, graphs):
+                               bucket_cap, decide, graphs, cap_rows):
     """The compact-then-compute lowering (``fused="compact"``):
 
       1. decide: the metadata-only Alg. 1 pass over every stream (it reads
@@ -613,16 +613,21 @@ def _multi_stream_compact_step(state: TorrState, im: ItemMemory, q, v, b,
     full-path count, then 2 and 3 (:func:`_compact_finish`) keyed by
     whether that count overflows the bucket. The latched ``plan`` sets the
     planes and bank cap of every pass and the tau offsets of the decide
-    pass."""
+    pass. The cap is resolved against ``cap_rows`` rows (None: this
+    call's S x N_max; a shard of a sharded step passes the whole step's,
+    so every shard runs the step's cap and records it). A generator: it
+    yields before and after its host read (:func:`run_in_turns`)."""
     S, N, _W = q.shape
-    bcap = _resolve_bucket_cap(bucket_cap, plan, S * N)
+    bcap = _resolve_bucket_cap(bucket_cap, plan, cap_rows or S * N)
     decide_mode = _resolve_decide(decide)
     gates, dec, aux, n_full = graphs.run(
         _segment_key("decide", cfg, plan, im, q, decide_mode),
         functools.partial(_compact_decide, cfg=cfg, plan=plan,
                           decide_mode=decide_mode),
         (state.cache, q, v, qd))
+    yield
     overflow = int(n_full) > bcap                  # the one host read
+    yield
     return graphs.run(
         _segment_key("finish", cfg, plan, im, q, decide_mode, serial, bcap,
                      overflow),
@@ -675,10 +680,53 @@ def _switch_segment(state: TorrState, q, v, b, qd, n_valid, high, banks, *,
                           fused_mode=FUSED_IDS["switch"])
 
 
+def run_phases(phases):
+    """Run a step's phases (a generator from :func:`step_phases`) to the
+    end; its (state, out, tel)."""
+    while True:
+        try:
+            next(phases)
+        except StopIteration as done:
+            return done.value
+
+
+def run_in_turns(steps, contexts) -> list:
+    """Run several steps' phases in turns, each ``next`` under its
+    ``contexts[i]()`` (a shard's device and stream): every step up to its
+    first host read (its launches enqueued), then every read, then every
+    launch after it, so no card waits for another's read. Returns each
+    step's (state, out, tel)."""
+    results = [None] * len(steps)
+    live = list(range(len(steps)))
+    while live:
+        left = []
+        for i in live:
+            with contexts[i]():
+                try:
+                    next(steps[i])
+                    left.append(i)
+                except StopIteration as done:
+                    results[i] = done.value
+        live = left
+    return results
+
+
 def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
                            valid, boxes, queue_depth, cfg: TorrConfig,
                            serial: bool = False, plan=None, fused=None,
-                           bucket_cap=None, decide=None, graphs=None):
+                           bucket_cap=None, decide=None, graphs=None,
+                           cap_rows=None):
+    """:func:`step_phases` run to its end."""
+    return run_phases(step_phases(
+        state, im, q_packed_all, valid, boxes, queue_depth, cfg,
+        serial=serial, plan=plan, fused=fused, bucket_cap=bucket_cap,
+        decide=decide, graphs=graphs, cap_rows=cap_rows))
+
+
+def step_phases(state: TorrState, im: ItemMemory, q_packed_all, valid,
+                boxes, queue_depth, cfg: TorrConfig, serial: bool = False,
+                plan=None, fused=None, bucket_cap=None, decide=None,
+                graphs=None, cap_rows=None):
     """One step over S streams' windows: ``q_packed_all`` int32 [S, N_max,
     D//32], ``valid`` bool [S, N_max], ``boxes`` f32 [S, N_max, 4],
     ``queue_depth`` int32 [S]; every state leaf has a leading [S] axis.
@@ -703,7 +751,13 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
     ``graphs`` runs the step's segments: a
     :class:`~repro_torch.core.capture.GraphFamily` replays one captured
     CUDA graph per segment key, None runs them eagerly. The state passed
-    in is not modified."""
+    in is not modified. ``cap_rows``: the rows compact's ``bucket_cap``
+    is resolved against (None: S x N_max).
+
+    A generator returning (state, out, tel): it yields right before and
+    right after each host read (compact's full-path count, switch's bank
+    choices), so :func:`run_in_turns` can enqueue every shard's work
+    before any shard reads."""
     if fused is None:
         fused = "switch" if serial else "prefix"
     if fused not in _FUSED_MODES:
@@ -712,10 +766,10 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
     q, v, b, qd = _as_batch(q_packed_all, valid, boxes, queue_depth,
                             im.device)
     if fused == "compact":
-        return _multi_stream_compact_step(state, im, q, v, b, qd, cfg,
-                                          serial=serial, plan=plan,
-                                          bucket_cap=bucket_cap,
-                                          decide=decide, graphs=graphs)
+        return (yield from _multi_stream_compact_step(
+            state, im, q, v, b, qd, cfg, serial=serial, plan=plan,
+            bucket_cap=bucket_cap, decide=decide, graphs=graphs,
+            cap_rows=cap_rows))
     if serial:
         steps = []
         for s in range(q.shape[0]):
@@ -733,8 +787,10 @@ def torr_multi_stream_step(state: TorrState, im: ItemMemory, q_packed_all,
             (state, q, v, b, qd))
     planes, cap, cfg_p = _plan_static(plan, cfg)
     n_valid, high, banks = _load_gates(v, qd, cfg_p, plan)
+    yield
     # the one host read: each window's bank choice
     choice = tuple(torch.clamp(banks, 1, cap).tolist())
+    yield
     return graphs.run(
         _segment_key("switch", cfg, plan, im, q, choice),
         functools.partial(_switch_segment, im=im, cfg=cfg, plan=plan,
@@ -773,9 +829,23 @@ def torr_window_step(state: TorrState, im: ItemMemory, q_packed_all, valid,
 def torr_stream_batch_step(state: TorrState, im: ItemMemory,
                            batch: StreamBatch, cfg: TorrConfig,
                            serial: bool = False, plan=None, fused=None,
-                           bucket_cap=None, decide=None, graphs=None):
+                           bucket_cap=None, decide=None, graphs=None,
+                           cap_rows=None):
     """:func:`torr_multi_stream_step` over a packed :class:`StreamBatch`."""
-    return torr_multi_stream_step(
+    return run_phases(stream_batch_phases(
+        state, im, batch, cfg, serial=serial, plan=plan, fused=fused,
+        bucket_cap=bucket_cap, decide=decide, graphs=graphs,
+        cap_rows=cap_rows))
+
+
+def stream_batch_phases(state: TorrState, im: ItemMemory,
+                        batch: StreamBatch, cfg: TorrConfig,
+                        serial: bool = False, plan=None, fused=None,
+                        bucket_cap=None, decide=None, graphs=None,
+                        cap_rows=None):
+    """:func:`step_phases` over a packed :class:`StreamBatch`."""
+    return step_phases(
         state, im, batch.q_packed, batch.valid, batch.boxes,
         batch.queue_depth, cfg, serial=serial, plan=plan, fused=fused,
-        bucket_cap=bucket_cap, decide=decide, graphs=graphs)
+        bucket_cap=bucket_cap, decide=decide, graphs=graphs,
+        cap_rows=cap_rows)

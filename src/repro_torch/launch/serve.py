@@ -127,8 +127,13 @@ must be a whole number of chunks) included. ``prefill`` under
 so the launcher's decode there takes the float path; the int8 decode
 starts from ``transformer.init_cache``.
 
-One card: ``--mesh`` takes 0 or 1 (``repro`` shards the stream slots over
-more devices; the port serves one).
+``--mesh N`` shards the stream slots over the first N cards (-1: all; 0:
+none), as ``repro``'s does over N devices, and implies ``--async``:
+``AsyncStreamEngine(mesh=)`` pads the slots to a multiple of N and runs
+one shard a card. N above the card count and ``--torr-serial`` with more
+than one device are refused. With ``--device cpu`` it makes N CPU shards
+(the counterpart of ``repro``'s N fake host devices): ``--torr-streams 6
+--mesh 4`` serves 8 slots.
 """
 from __future__ import annotations
 
@@ -176,6 +181,21 @@ def _restore_signal_handlers(previous) -> None:
                 pass
 
 
+def stream_mesh_for(n: int, dev):
+    """The stream mesh of ``--mesh n`` (None for 0): the first ``n`` cards
+    (-1: all), or on the CPU ``n`` CPU shards."""
+    from ..runtime import sharding as shd
+
+    if n == 0:
+        return None
+    if dev.type == "cpu":
+        if n < 0:
+            raise ValueError("--mesh -1 counts cards; on the CPU give the "
+                             "number of CPU shards")
+        return shd.stream_mesh(devices=[dev] * n)
+    return shd.stream_mesh(None if n < 0 else n)
+
+
 def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
                      serial: bool = False, use_async: bool = False,
                      mesh_devices: int = 0, rt: str = "",
@@ -193,7 +213,8 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     :class:`~repro_torch.serving.async_engine.AsyncStreamEngine`; ``rt``
     ("RT-30"/"RT-60") arms the deadline admission controller and
     ``governor`` the QoS loop (both imply the async runtime);
-    ``mesh_devices`` takes 0 or 1 (one card). ``fused`` picks the full
+    ``mesh_devices`` shards the slots (:func:`stream_mesh_for`; implies the
+    async runtime). ``fused`` picks the full
     path's lowering (None = the lowering's default). ``device`` is where
     the engine and the encode run (the card by default; ``"cpu"`` runs the
     plain versions).
@@ -230,12 +251,11 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
     from ..serving import tood_pipelines as tp
     from ..serving.stream_engine import StreamEngine
 
-    if mesh_devices not in (0, 1):
-        raise ValueError(f"mesh_devices={mesh_devices}: the port serves one "
-                         "card (0 or 1)")
     supervise = supervise or fault_at is not None
-    use_async = use_async or bool(rt) or governor or supervise
+    use_async = (use_async or bool(rt) or governor or supervise
+                 or mesh_devices != 0)
     dev = resolve_device(device)
+    mesh = stream_mesh_for(mesh_devices, dev)
     cfg = TorrConfig(**SERVE_CFG)
     world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim)
     sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
@@ -277,7 +297,7 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
             # rebuilt engine runs clean
             return AsyncStreamEngine(
                 cfg, sys_.im, n_slots=n_slots, serial=serial, fused=fused,
-                tracker=tracker, governor=gov, paused=True,
+                mesh=mesh, tracker=tracker, governor=gov, paused=True,
                 metrics=registry, flight=flight, tracer=tracer, store=store,
                 snapshot_every=snapshot_every, fault_plan=fault, device=dev)
 
@@ -427,8 +447,9 @@ def run_torr_streams(n_streams: int, n_frames: int, n_slots: int = 0,
         eng.close(drain=not interrupted)
     launches = {k: n - launches0.get(k, 0) for k, n in build.LAUNCHES.items()}
     mode = "async" if use_async else "sync"
+    shards = "" if mesh is None else f" shards={len(mesh)}"
     print(f"[serve/torr] streams={n_streams} slots={eng.n_slots} "
-          f"frames/stream={n_frames} mode={mode} device={dev}")
+          f"frames/stream={n_frames} mode={mode} device={dev}{shards}")
     if paths:
         # count only real proposal lanes: padding lanes report as bypass
         pvals = np.concatenate(paths)[np.concatenate(valids)]
@@ -538,7 +559,7 @@ def run_torr_gateway(n_slots: int = 8, serial: bool = False, rt: str = "",
                      gateway_max_conns: int = 64,
                      gateway_tenant_sessions: int = 8,
                      run_seconds: float = 0.0, use_async: bool = True,
-                     device=None):
+                     mesh_devices: int = 0, device=None):
     """Serve the TorR engine behind the network gateway until SIGTERM.
 
     The same engine stack as :func:`run_torr_streams` (config, synthetic
@@ -553,7 +574,9 @@ def run_torr_gateway(n_slots: int = 8, serial: bool = False, rt: str = "",
     serve window; 0 serves until a signal arrives. ``use_async=False``
     drives the sync engine through the
     :class:`~repro_torch.serving.gateway.SyncDriver`. The engine runs on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default), its slots sharded as
+    ``mesh_devices`` says (:func:`stream_mesh_for`; the async runtime
+    only), and a supervisor's rebuilt engine is sharded again."""
     from ..data import tood_synth as ts
     from ..device import resolve_device
     from ..runtime.fault import EngineDead
@@ -562,7 +585,11 @@ def run_torr_gateway(n_slots: int = 8, serial: bool = False, rt: str = "",
 
     supervise = supervise or fault_at is not None
     use_async = use_async or bool(rt) or governor or supervise
+    if mesh_devices != 0 and not use_async:
+        raise ValueError("a mesh shards the async runtime; it cannot drive "
+                         "the sync engine")
     dev = resolve_device(device)
+    mesh = stream_mesh_for(mesh_devices, dev)
     cfg = TorrConfig(**SERVE_CFG)
     world = ts.make_world(0, M=cfg.M, d=cfg.feat_dim)
     sys_ = tp.build_system(world, cfg, torch.Generator().manual_seed(0))
@@ -602,7 +629,7 @@ def run_torr_gateway(n_slots: int = 8, serial: bool = False, rt: str = "",
         def make_engine():
             return AsyncStreamEngine(
                 cfg, sys_.im, n_slots=n_slots, serial=serial, fused=fused,
-                tracker=tracker, governor=gov, paused=True,
+                mesh=mesh, tracker=tracker, governor=gov, paused=True,
                 metrics=registry, flight=flight, tracer=tracer, store=store,
                 snapshot_every=snapshot_every, fault_plan=fault, device=dev)
 
@@ -892,6 +919,28 @@ def _check_lm_args(ap, args) -> None:
                  f"on the card")
 
 
+def _check_mesh_args(ap, args) -> None:
+    """Refuse ``--mesh N`` above the card count (on the card) and
+    ``--torr-serial`` over more than one device."""
+    if args.mesh == 0:
+        return
+    if args.mesh < -1:
+        ap.error(f"--mesh {args.mesh}: N >= 1, 0 (none) or -1 (all cards)")
+    on_cpu = args.device is not None and \
+        torch.device(args.device).type == "cpu"
+    if not on_cpu:
+        cards = torch.cuda.device_count()
+        if args.mesh > cards:
+            ap.error(f"--mesh {args.mesh}: requested {args.mesh} devices, "
+                     f"only {cards} present")
+        n = cards if args.mesh < 0 else args.mesh
+    else:
+        n = args.mesh
+    if n > 1 and args.torr_serial:
+        ap.error("--torr-serial runs the slots one after another and cannot "
+                 "shard them; drop it or --mesh")
+
+
 def main(argv=None) -> None:
     from ..configs import ARCHS
 
@@ -933,9 +982,9 @@ def main(argv=None) -> None:
                     help="dispatch/collect split: overlap host window "
                          "assembly with device steps (AsyncStreamEngine)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    choices=[0, 1],
-                    help="devices to shard the stream slots over: the port "
-                         "serves one card (0 or 1)")
+                    help="shard stream slots over the first N cards, -1 = "
+                         "all (implies --async; default 0 = no sharding; "
+                         "with --device cpu, N CPU shards)")
     ap.add_argument("--rt", default="", choices=["", "RT-30", "RT-60"],
                     help="arm RT-deadline admission control at this "
                          "operating point (implies --async)")
@@ -1007,6 +1056,7 @@ def main(argv=None) -> None:
                     help="where the engine runs (default: the card; cpu "
                          "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
+    _check_mesh_args(ap, args)
     if args.gateway_port is not None:
         run_torr_gateway(
             n_slots=args.torr_slots or 8, serial=args.torr_serial,
@@ -1025,7 +1075,8 @@ def main(argv=None) -> None:
             gateway_max_conns=args.gateway_max_conns,
             gateway_tenant_sessions=args.gateway_tenant_sessions,
             run_seconds=args.gateway_seconds,
-            use_async=not args.gateway_sync, device=args.device)
+            use_async=not args.gateway_sync, mesh_devices=args.mesh,
+            device=args.device)
         return
     if args.torr_streams <= 0:
         _check_lm_args(ap, args)

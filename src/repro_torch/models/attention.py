@@ -116,13 +116,20 @@ def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
     with its own rows and heads (``spmd.per_head``): the KV heads sharded
     with their query groups, or a single KV head shared by query heads
     sharded within the group."""
+    return _merged(_on_heads(_causal_core, qg, k, v, cfg), cfg)
+
+
+def _on_heads(core, qg, k, v, cfg: ModelConfig, *whole):
+    """``core(qg, k, v, *whole, cfg)`` through ``spmd.per_head``: grouped
+    queries [B,(S,)Hkv,G,dh] against k/v [B,S,Hkv,dh], split by their KV
+    heads, or with a single KV head by the query heads of its group (k
+    and v then whole); ``whole`` (a mask) is every head's."""
+    h = qg.ndim - 3
     if cfg.n_kv_heads == 1:
-        o = per_head(lambda q, k, v: _causal_core(q, k, v, cfg),
-                     (qg, 3), (k, None), (v, None))
+        heads = ((qg, h + 1), (k, None), (v, None))
     else:
-        o = per_head(lambda q, k, v: _causal_core(q, k, v, cfg),
-                     (qg, 2), (k, 2), (v, 2))
-    return _merged(o, cfg)
+        heads = ((qg, h), (k, 2), (v, 2))
+    return per_head(lambda *a: core(*a, cfg), *heads, *whole)
 
 
 def _causal_core(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -204,22 +211,6 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
     index = slot.reshape(1).long()
 
     qg = _grouped(q, cfg)[:, 0]                       # [B,Hkv,G,dh]
-    scale = cfg.head_dim ** -0.5
-    if quant:
-        for name, t in zip(("kq", "ks", "vq", "vs"),
-                           (*_quant_rows(k_new), *_quant_rows(v_new))):
-            cache[name].index_copy_(1, index, t)
-        qq, qs = _quant_rows(qg)                      # [B,Hkv,G,dh],[B,Hkv,G]
-        s_i32 = int8_dot.rows(qq, cache["kq"])
-        s = (s_i32.float() * qs[..., None]
-             * cache["ks"].transpose(1, 2)[:, :, None, :]) * scale
-    else:
-        k_cache, v_cache = cache
-        k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
-        s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
-                         k_cache.to(BF16)).float() * scale
-    s = softcap(s, cfg.attn_logit_softcap)
     kpos = torch.arange(S_max, device=x.device)
     if ring:
         # ring slot i holds absolute position pos - slot + i (i <= slot) or
@@ -233,16 +224,42 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
         keep = kpos <= pos
         if cfg.sliding_window is not None:
             keep &= kpos > pos - cfg.sliding_window
-    s = torch.where(keep[None, None, None, :], s, NEG_INF)
     if quant:
+        for name, t in zip(("kq", "ks", "vq", "vs"),
+                           (*_quant_rows(k_new), *_quant_rows(v_new))):
+            cache[name].index_copy_(1, index, t)
+        qq, qs = _quant_rows(qg)                      # [B,Hkv,G,dh],[B,Hkv,G]
+        s_i32 = int8_dot.rows(qq, cache["kq"])
+        s = (s_i32.float() * qs[..., None]
+             * cache["ks"].transpose(1, 2)[:, :, None, :]) \
+            * cfg.head_dim ** -0.5
+        s = softcap(s, cfg.attn_logit_softcap)
+        s = torch.where(keep[None, None, None, :], s, NEG_INF)
         pr = _softmax(s) * cache["vs"].transpose(1, 2)[:, :, None, :]
         pq, ps = _quant_rows(pr)                      # [B,Hkv,G,S]
         o_i32 = int8_dot.cols(pq, cache["vq"])
         o = (o_i32.float() * ps[..., None]).to(x.dtype)
     else:
-        pr = _softmax(s).to(cache[1].dtype)
-        o = torch.einsum("bhgs,bshd->bhgd", pr, cache[1])
+        k_cache, v_cache = cache
+        k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
+        o = _on_heads(_decode_core, qg, k_cache, v_cache, cfg, keep)
     return _merged(o[:, None], cfg) @ p.wo, cache
+
+
+def _decode_core(qg, k, v, keep, cfg: ModelConfig, cap=True):
+    """One query token's attention, [B,Hkv,G,dh] over k/v [B,S,Hkv,dh]:
+    the score product, the logit softcap (``cap``; cross attention has
+    none), the mask ``keep`` [S] (None: none), the softmax and the value
+    product."""
+    s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
+                     k.to(BF16)).float() * cfg.head_dim ** -0.5
+    if cap:
+        s = softcap(s, cfg.attn_logit_softcap)
+    if keep is not None:
+        s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    pr = _softmax(s).to(v.dtype)
+    return torch.einsum("bhgs,bshd->bhgd", pr, v)
 
 
 # ---------------------------------------------------------------------------
@@ -262,13 +279,17 @@ def cross_attn(p: Params, x: torch.Tensor, vis: torch.Tensor,
     B, S, _ = x.shape
     vis = _vision_in(rmsnorm(vis, p.kv_norm, cfg.rmsnorm_eps), p)
     q, k, v = _qkv(p, x, cfg, kv_src=vis)
-    qg = _grouped(q, cfg)
-    scale = cfg.head_dim ** -0.5
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(BF16),
-                     k.to(BF16)).float() * scale
-    pr = _softmax(s).to(v.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
+    o = _on_heads(_cross_core, _grouped(q, cfg), k, v, cfg)
     return _merged(o, cfg) @ p.wo
+
+
+def _cross_core(qg, k, v, cfg: ModelConfig):
+    """Grouped queries [B,S,Hkv,G,dh] over every vision position of k/v
+    [B,Nv,Hkv,dh]: no mask, no softcap."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(BF16),
+                     k.to(BF16)).float() * cfg.head_dim ** -0.5
+    pr = _softmax(s).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", pr, v)
 
 
 def cross_attn_kv(p: Params, vis: torch.Tensor, cfg: ModelConfig):
@@ -289,10 +310,7 @@ def cross_attn_decode(p: Params, x: torch.Tensor, kv: tuple,
     q = _heads(x @ p.wq, cfg.n_heads, cfg)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
-    qg = _grouped(q, cfg)[:, 0]
-    scale = cfg.head_dim ** -0.5
-    s = torch.einsum("bhgd,bshd->bhgs", qg.to(BF16),
-                     k.to(BF16)).float() * scale
-    pr = _softmax(s).to(v.dtype)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, v)
+    o = _on_heads(lambda qg, k, v, cfg: _decode_core(qg, k, v, None, cfg,
+                                                    cap=False),
+                  _grouped(q, cfg)[:, 0], k, v, cfg)
     return _merged(o[:, None], cfg) @ p.wo

@@ -23,14 +23,22 @@ A mesh here is anything with ``mesh_dim_names`` and ``shape`` (a
 ``torch.distributed.device_mesh.DeviceMesh``); only the axis sizes are read.
 :func:`placements` turns a spec into DTensor placements (``Shard(dim)`` on
 each mesh axis that names a dim, ``Replicate()`` elsewhere) and
-:func:`distribute` places a tree with ``distribute_tensor``. The stream
-half of the reference's module (``stream_mesh`` and the stacked per-stream
-serving state) is not ported yet (ROADMAP Queue 1).
+:func:`distribute` places a tree with ``distribute_tensor``.
+
+The stream half (the reference's ``stream_mesh`` and the stacked
+per-stream serving state) shards the multi-stream engine's leading slot
+axis over a :class:`StreamMesh`, a 1-D list of devices, and replicates
+the item memory. Streams are independent, so the port needs no DTensor
+there: :func:`split_streams` gives each device its own rows as plain
+tensors and :func:`join_streams` puts them back together
+(``serving.async_engine`` runs one step on every shard).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import numpy as np
 
 # trailing-dims spec per parameter leaf name
 _COL = (None, "model")     # [in, out_sharded]
@@ -91,6 +99,11 @@ def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map_with_path(fn, getattr(tree, f.name),
+                                       path + (f.name,))
+            for f in dataclasses.fields(tree)})
     return fn(path, tree)
 
 
@@ -373,3 +386,120 @@ def abstract_tree(init_fn: Callable, *args, **kwargs):
     shape and dtype, nothing allocated (the counterpart of
     ``jax.eval_shape``)."""
     return init_fn(*args, **kwargs, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Multi-stream serving: stacked per-stream state over a 1-D stream mesh
+# ---------------------------------------------------------------------------
+# The multi-stream engine stacks every per-stream leaf with a leading
+# stream-slot axis [S, ...]. Streams are independent (the batched step is
+# the window FSM once per slot), so the partitioning is: shard the leading
+# S axis, replicate the shared item memory. The engine pads its slot count
+# to a multiple of the device count so the leading axis always divides.
+
+STREAM_AXIS = "stream"
+
+
+class StreamMesh(tuple):
+    """A 1-D mesh over the stream axis: a tuple of ``torch.device``s, one a
+    shard, read as the reference's engine reads its ``Mesh``
+    (``shape[STREAM_AXIS]``, ``devices.size``). A device may appear more
+    than once: two shards on one card, or CPU shards."""
+
+    def __new__(cls, devices):
+        import torch
+
+        devs = tuple(torch.device(d) for d in devices)
+        if not devs:
+            raise ValueError("a stream mesh needs at least one device")
+        return super().__new__(cls, devs)
+
+    axis_names = (STREAM_AXIS,)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {STREAM_AXIS: len(self)}
+
+    @property
+    def devices(self) -> np.ndarray:
+        out = np.empty(len(self), dtype=object)
+        out[:] = self
+        return out
+
+
+def stream_mesh(n_devices: int | None = None, devices=None) -> StreamMesh:
+    """1-D mesh over (the first) ``n_devices`` CUDA cards (None or 0: all)
+    for stream sharding; or over ``devices``, an explicit list (CPU
+    shards, or several shards on one card)."""
+    if devices is not None:
+        return StreamMesh(devices)
+    import torch
+
+    m = torch.cuda.device_count()
+    n = m if n_devices in (None, 0) else n_devices
+    if n > m or n < 1:
+        raise ValueError(f"requested {n} devices, only {m} present")
+    return StreamMesh(torch.device("cuda", i) for i in range(n))
+
+
+def pad_stream_slots(n_slots: int, mesh: StreamMesh | None) -> int:
+    """Round a slot count up to a multiple of the mesh's stream-axis size."""
+    if mesh is None:
+        return n_slots
+    n_dev = mesh.shape[STREAM_AXIS]
+    return -(-n_slots // n_dev) * n_dev
+
+
+def stream_spec(leaf) -> Spec:
+    """Shard the leading stream-slot axis; everything trailing replicated."""
+    return (STREAM_AXIS,) + (None,) * (len(leaf.shape) - 1)
+
+
+def stream_sharding(tree, mesh: StreamMesh) -> Any:
+    """:class:`Sharding` tree for stacked per-stream state / batches. Every
+    leaf must carry the leading [S] stream axis with S divisible by the
+    mesh (guaranteed by :func:`pad_stream_slots`)."""
+    return tree_map_with_path(
+        lambda p, l: Sharding(mesh, stream_spec(l)), tree)
+
+
+def replicated_sharding(tree, mesh: StreamMesh) -> Any:
+    """Fully replicated :class:`Sharding` tree (the shared item memory)."""
+    return tree_map_with_path(lambda p, l: Sharding(mesh, ()), tree)
+
+
+def stream_rows(n_slots: int, mesh: StreamMesh) -> list[tuple[int, int]]:
+    """The slot rows [lo, hi) each shard of ``mesh`` owns."""
+    n = len(mesh)
+    if n_slots % n:
+        raise ValueError(f"{n_slots} slots do not divide over {n} shards; "
+                         "pad them with pad_stream_slots")
+    per = n_slots // n
+    return [(k * per, (k + 1) * per) for k in range(n)]
+
+
+def split_streams(tree, mesh: StreamMesh) -> list:
+    """A stacked [S, ...] tree as one tree per shard of ``mesh``: shard k's
+    rows (:func:`stream_rows`) copied to its device, sharing no memory with
+    ``tree`` or another shard."""
+    leaves = []
+    tree_map_with_path(lambda p, l: leaves.append(l), tree)
+    if not leaves:
+        raise ValueError("split_streams: no tensor in the tree")
+    rows = stream_rows(leaves[0].shape[0], mesh)
+    return [tree_map_with_path(
+        lambda p, l, lo=lo, hi=hi, d=d: l[lo:hi].to(d, copy=True), tree)
+        for (lo, hi), d in zip(rows, mesh)]
+
+
+def join_streams(trees: list, device) -> Any:
+    """The per-shard trees of :func:`split_streams` stacked back into one
+    [S, ...] tree on ``device``."""
+    import torch
+
+    parts = [[] for _ in trees]
+    for part, t in zip(parts, trees):
+        tree_map_with_path(lambda p, l, part=part: part.append(l), t)
+    it = iter(zip(*parts))
+    return tree_map_with_path(
+        lambda p, l: torch.cat([x.to(device) for x in next(it)]), trees[0])

@@ -258,7 +258,9 @@ def per_head(fn, *args, out_heads=None):
     each rank holds divide it, else not at all (every tensor whole there,
     a gather :func:`_note` records). The result has the first tensor's
     layout, or with ``out_heads`` (one head dim for each of the tuple
-    ``fn`` returns, dim 0 the batch of each) that tuple so placed.
+    ``fn`` returns, dim 0 the batch of each) that tuple so placed. A
+    DTensor passed as a plain value (a mask every head shares) must be
+    replicated on every axis; ``fn`` gets its local tensor.
     Without DTensors, ``fn(*tensors)``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -267,6 +269,12 @@ def per_head(fn, *args, out_heads=None):
     first = tensors[0]
     if not isinstance(first, _dtensor()):
         return fn(*tensors)
+    for i, a in enumerate(args):
+        if not isinstance(a, tuple) and isinstance(a, _dtensor()):
+            if not all(isinstance(p, Replicate) for p in a.placements):
+                raise ValueError(f"per_head: a whole value placed "
+                                 f"{a.placements}, not replicated")
+            tensors[i] = a.to_local()
     mesh = first.device_mesh
     names = mesh.mesh_dim_names or ()
     batch = [Shard(0) if p == Shard(0) and name != "model" else Replicate()

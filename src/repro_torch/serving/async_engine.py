@@ -1,5 +1,5 @@
-"""Async multi-stream serving runtime: the dispatch/collect split (port of
-``repro.serving.async_engine`` on one card).
+"""Async, device-sharded multi-stream serving runtime: the dispatch/collect
+split (port of ``repro.serving.async_engine``).
 
 Scheduling contract
 ===================
@@ -35,8 +35,30 @@ sync engine would build, so results are bit-identical to ``StreamEngine``.
 Construct with ``paused=True`` and call :meth:`start` after submitting to
 reproduce the sync engine's drain schedule exactly.
 
-One card: ``mesh=`` takes None or a mesh of one device (anything with a
-one-element ``devices``); the port does not shard the stream slots.
+Sharding: pass ``mesh`` (a :class:`~repro_torch.runtime.sharding.
+StreamMesh` from ``runtime.sharding.stream_mesh``) to shard the stacked
+``TorrState`` along the leading stream-slot axis, with the shared item
+memory replicated: one :class:`Shard` a mesh device, each with its rows
+of the state, its device's copy of the item memory, its own CUDA stream
+and its own ``GraphFamily`` (captured under its device; captures take
+turns). The slot count is padded up to a multiple of the device count
+(``runtime.sharding.pad_stream_slots``); pad slots ride the pipeline's
+pad branch. A step assembles one batch, as the unsharded engine does,
+resolves one lowering, plan and ``auto`` choice, and runs it on every
+shard in turns (``pipeline.run_in_turns``): every shard's launches up to
+its host read (compact's full-path count, switch's bank choices) are
+enqueued before any shard reads, so the cards never wait for one
+another's reads. Compact's ``bucket_cap`` is the same number on every
+shard, resolved against the whole step's rows; a shard whose full-path
+rows overflow it takes the exact fallback, so outputs and telemetry equal
+the unsharded engine's. The collector waits on each shard's event and
+copies each shard's rows into one host tree. Streams are independent, so
+the sharding is communication-free and exact; on a one-device mesh (or
+``mesh=None``) the engine runs its unsharded path. The ``serial``
+lowering runs the slots one after another and cannot shard; it is
+refused with a mesh of several devices. A mesh may name one card more
+than once (several shards on one card) or the CPU (CPU shards, the
+tests' stand-in for several cards).
 
 The card: every device operation of the engine (its state, admission,
 the batch gather, the step) runs on the dispatcher's stream; a window
@@ -81,6 +103,7 @@ without joining them, for a supervisor's recovery.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import queue
 import threading
 import time
@@ -91,13 +114,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core import capture, pipeline
 from ..core.item_memory import ItemMemory
-from ..core.types import TorrConfig, map_tensors
+from ..core.pipeline import TorrState
+from ..core.types import StreamBatch, TorrConfig, map_tensors
 from ..device import resolve_device
 from ..obs.bridge import telemetry_digest
 from ..obs.spans import NULL_SPAN, span
 from ..obs.trace import now_us, trace_scope
 from ..perf.cycle_model import telemetry_cost
+from ..runtime import sharding as shd
 from ..runtime.fault import EngineDead
 from .deadline import Decision, DeadlineTracker, WindowShed
 from .stream_engine import (GATE_ADMIT, GATE_ESCALATE, GATE_SHED,
@@ -134,6 +160,30 @@ def _on(stream):
         else contextlib.nullcontext()
 
 
+@dataclasses.dataclass(eq=False)
+class Shard:
+    """One mesh device's part of a sharded engine: slots [lo, hi), their
+    rows of the state, the device's item memory, a stream and a graph
+    family (None on the CPU, and the family None with ``jit=False``)."""
+    device: torch.device
+    lo: int
+    hi: int
+    state: TorrState
+    im: ItemMemory
+    stream: torch.cuda.Stream | None
+    graphs: capture.GraphFamily | None
+    pad: tuple | None = None    # pad lanes on the device
+
+    def on(self):
+        """The shard's device and stream as the current ones (nothing on
+        the CPU)."""
+        stack = contextlib.ExitStack()
+        if self.stream is not None:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
+
 class AsyncStreamEngine(StreamEngine):
     """Dispatch/collect split over the slot scheduler; futures per window."""
 
@@ -152,13 +202,27 @@ class AsyncStreamEngine(StreamEngine):
             raise ValueError(
                 "the QoS governor is slack-driven: pass a DeadlineTracker "
                 "alongside governor=")
-        if mesh is not None and np.size(getattr(mesh, "devices", ())) != 1:
+        sharded = mesh is not None and np.size(mesh.devices) > 1
+        if sharded and serial:
             raise ValueError(
-                "the port serves one card: mesh= takes None or a mesh of "
-                "one device")
+                "the serial lowering runs the slots one after another and "
+                "cannot shard the stream axis; use serial=False with a mesh")
+        self._mesh = mesh if sharded else None
+        self._shards = None
+        devs = None
+        if sharded:
+            devs = [torch.device(d) for d in mesh.devices]
+            kinds = {d.type for d in devs}
+            if device is not None:
+                kinds.add(torch.device(device).type)
+            if len(kinds) != 1:
+                raise ValueError(f"the mesh's devices {devs} and device="
+                                 f"{device} are of different kinds")
+            device = devs[0]
+            n_slots = shd.pad_stream_slots(n_slots, mesh)
         device = resolve_device(device)
         self._stream = (torch.cuda.Stream(device)
-                        if device.type == "cuda" else None)
+                        if device.type == "cuda" and not sharded else None)
         if self._stream is not None:
             # the item memory, the state and any tensor the caller made
             # before are ready before the dispatcher's stream reads them
@@ -170,6 +234,8 @@ class AsyncStreamEngine(StreamEngine):
                              metrics=metrics, flight=flight, tracer=tracer,
                              store=store, snapshot_every=snapshot_every,
                              fault_plan=fault_plan, device=device)
+        if sharded:
+            self._split(devs, jit)
         # async phase spans (the sync step() spans are unused here); each
         # runs on exactly one daemon thread
         sp = (lambda name: span(name, metrics)) \
@@ -197,6 +263,175 @@ class AsyncStreamEngine(StreamEngine):
         self._started = False
         if not paused:
             self.start()
+
+    # -- shards -------------------------------------------------------------
+
+    def _split(self, devs, jit: bool) -> None:
+        """Give each mesh device its shard: its rows of the state made by
+        the base class, the item memory copied once a device, a stream and
+        a graph family of its own."""
+        states = shd.split_streams(self._state, self._mesh)
+        del self._state         # the shards own the rows from here on
+        ims = {self.device: self.im}
+        self.graphs = None
+        self._shards = []
+        for (lo, hi), dev, state in zip(
+                shd.stream_rows(self.n_slots, self._mesh), devs, states):
+            if dev not in ims:
+                ims[dev] = self.im.to(dev)
+            stream = None
+            if dev.type == "cuda":
+                # the rows and the item memory were copied on the caller's
+                # stream: the shard's stream reads them after
+                stream = torch.cuda.Stream(dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+            self._shards.append(Shard(
+                dev, lo, hi, state, ims[dev], stream,
+                capture.GraphFamily() if jit and stream is not None
+                else None))
+
+    @property
+    def shards(self) -> list | None:
+        """The engine's :class:`Shard` s (None without a mesh of several
+        devices)."""
+        return self._shards
+
+    def _shard_of(self, slot: int) -> int:
+        return slot // (self.n_slots // len(self._shards))
+
+    @property
+    def state(self) -> TorrState:
+        """The whole state; with shards, their rows joined on the first
+        shard's device (a copy, for callers: never on the hot path)."""
+        if self._shards is None:
+            return self._state
+        with self._lock:
+            shards = [(sh, sh.state) for sh in self._shards]
+        for sh, _ in shards:
+            if sh.stream is not None:
+                torch.cuda.current_stream(sh.device).wait_stream(sh.stream)
+        return shd.join_streams([st for _, st in shards], self.device)
+
+    def _reset_slot(self, slot: int, task_w, snapshot) -> None:
+        if self._shards is None:
+            super()._reset_slot(slot, task_w, snapshot)
+            return
+        k, state, row = self._rows_of(slot)
+        sh = self._shards[k]
+        with sh.on():
+            sh.state = self._reset_row(state, row, task_w, snapshot)
+
+    def _rows_of(self, slot: int):
+        if self._shards is None:
+            return super()._rows_of(slot)
+        k = self._shard_of(slot)
+        sh = self._shards[k]
+        return k, sh.state, slot - sh.lo
+
+    def _window(self, stream_id, q_packed, valid, boxes) -> tuple:
+        """One submitted window's leaves (``window_leaves``) on its slot's
+        device. A tensor on the card was made on the caller's stream and
+        is read on the dispatcher's (or its shard's): the reads are
+        ordered after the writes, and its memory kept from reuse until
+        that stream is past them; with shards it is first copied to its
+        shard's card when it was made on another."""
+        if self._shards is None:
+            dev, stream = self.device, self._stream
+        else:
+            with self._lock:
+                sh = self._shards[self._shard_of(self._slot_of[stream_id])]
+            dev, stream = sh.device, sh.stream
+        leaves = window_leaves(dev, q_packed, valid, boxes)
+        if not any(isinstance(x, torch.Tensor) for x in leaves):
+            return leaves
+        if self._shards is not None:
+            leaves = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                           for x in leaves)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        for x in leaves:
+            if isinstance(x, torch.Tensor):
+                x.record_stream(stream)
+        return leaves
+
+    def _gather(self, i, lanes, buf):
+        """With shards and a lane on the card: one stack a shard, on its
+        device (a list); else the base class's gather."""
+        if self._shards is None or not any(
+                isinstance(x, torch.Tensor) for x in lanes.values()):
+            return super()._gather(i, lanes, buf)
+        out = []
+        for sh in self._shards:
+            with sh.on():
+                if sh.pad is None:
+                    sh.pad = self._pad_lanes(sh.device)
+                out.append(self._stack_lanes(lanes, range(sh.lo, sh.hi),
+                                             sh.pad[i], sh.device))
+        return out
+
+    def _launch(self, q, v, b, qd) -> list:
+        """Dispatch one assembled batch: ``[((out, tel), ready)]``, one
+        entry a shard (one without shards), ``ready`` the event after the
+        shard's step (None on the CPU)."""
+        if self._shards is None:
+            out, tel = self._dispatch(q, v, b, qd)
+            return [((out, tel), self._ready_event())]
+        fused, bucket_cap, decide = self._resolve_fused()
+        self._last_resolved = (fused, bucket_cap, decide)
+        batches = []
+        for k, sh in enumerate(self._shards):
+            with sh.on():
+                batches.append(StreamBatch(*(
+                    x[k] if isinstance(x, list) else
+                    x[sh.lo:sh.hi].to(sh.device, non_blocking=True)
+                    for x in (q, v, b, qd))))
+        results, readys = self._step_shards(batches, fused, bucket_cap,
+                                            decide)
+        for sh, (state, _out, _tel) in zip(self._shards, results):
+            sh.state = state
+        return [((out, tel), ready)
+                for (_state, out, tel), ready in zip(results, readys)]
+
+    def _step_shards(self, batches, fused, bucket_cap, decide):
+        """One step on every shard in turns; each shard's (state, out,
+        tel) and the event after its step."""
+        steps = [pipeline.stream_batch_phases(
+            sh.state, sh.im, batch, self.cfg, serial=self._serial,
+            plan=self._plan, fused=fused, bucket_cap=bucket_cap,
+            decide=decide, graphs=sh.graphs,
+            cap_rows=self.n_slots * self.cfg.N_max)
+            for sh, batch in zip(self._shards, batches)]
+        results = pipeline.run_in_turns(steps,
+                                        [sh.on for sh in self._shards])
+        readys = [None if sh.stream is None else sh.stream.record_event()
+                  for sh in self._shards]
+        return results, readys
+
+    def _warm(self) -> None:
+        """The base class's warm-up, or with shards one all-pad step on
+        every shard (a state no-op), its outputs copied to the host."""
+        if self._shards is None:
+            super().warmup()
+            return
+        fused, bucket_cap, decide = self._resolve_fused()
+        batches = []
+        for sh in self._shards:
+            with sh.on():
+                batches.append(self._empty_batch(sh.hi - sh.lo, sh.device))
+        results, readys = self._step_shards(batches, fused, bucket_cap,
+                                            decide)
+        self._rows_to_host([(out, tel) for _st, out, tel in results],
+                           readys)
+        self.sync()
+
+    def sync(self) -> None:
+        """Block until the work launched on the engine's streams has
+        finished (every shard's, with shards)."""
+        if self._shards is None:
+            super().sync()
+            return
+        for sh in self._shards:
+            if sh.stream is not None:
+                sh.stream.synchronize()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -312,16 +547,8 @@ class AsyncStreamEngine(StreamEngine):
         arrival = self._tracker.now() if self._tracker else time.monotonic()
         ctx = (self._tracer.mint(stream_id, self._ENGINE)
                if self._tracer is not None else None)
-        leaves = window_leaves(self.device, q_packed, valid, boxes)
-        cuda = [x for x in leaves if isinstance(x, torch.Tensor)]
-        if cuda:
-            # made on the caller's stream, read on the dispatcher's: order
-            # the reads after the writes, and keep the memory from reuse
-            # until the dispatcher's stream is past them
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            for x in cuda:
-                x.record_stream(self._stream)
-        window = leaves + (fut, arrival, ctx)
+        window = self._window(stream_id, q_packed, valid, boxes) + (
+            fut, arrival, ctx)
         with self._work:
             self._pending[self._slot_of[stream_id]].append(window)
             self._inflight += 1
@@ -439,13 +666,13 @@ class AsyncStreamEngine(StreamEngine):
         current key is captured before serving."""
         with self._lock, _on(self._stream):
             if self._governor is None:
-                super().warmup()
+                self._warm()
                 return
             latched = self._plan
             try:
                 for plan in self._governor.ladder:
                     self._plan = plan
-                    super().warmup()
+                    self._warm()
             finally:
                 self._plan = latched
 
@@ -491,8 +718,7 @@ class AsyncStreamEngine(StreamEngine):
                                 # and the state's advance
                                 with self._sp_dispatch:
                                     t0 = time.monotonic()
-                                    out, tel = self._dispatch(q, v, b, qd)
-                                    ready = self._ready_event()
+                                    parts = self._launch(q, v, b, qd)
                     finally:
                         self._step_ctxs = None
                     if served:
@@ -536,7 +762,7 @@ class AsyncStreamEngine(StreamEngine):
                 # bounded queue = pipeline depth: block here (not holding
                 # the lock) instead of racing ahead of the device
                 self._collect_q.put(
-                    (served, out, tel, t0, rec, step_ctxs, ready, snaps))
+                    (served, parts, t0, rec, step_ctxs, snaps))
                 if self._error is not None:
                     # the collector died while we were blocked in put():
                     # _fail's drain ran before our item landed, so nobody
@@ -570,19 +796,20 @@ class AsyncStreamEngine(StreamEngine):
                     # unresolved (their futures fail via _fail)
                     self._fault.maybe_fire("collector", n_collected)
                 n_collected += 1
-                served, out, tel, t0, rec, ctxs, ready, snaps = item
+                served, parts, t0, rec, ctxs, snaps = item
                 # traced steps re-open their context scope on the collector
                 # thread: the device/drain spans stamp onto the same
                 # windows the dispatcher's spans did
                 scope = trace_scope(ctxs) if ctxs else NULL_SPAN
                 with scope:
                     with self._sp_device:
-                        if ready is not None:
-                            ready.synchronize()
+                        for _trees, ready in parts:
+                            if ready is not None:
+                                ready.synchronize()
                     dur = time.monotonic() - t0
                     with self._sp_drain:
-                        digest = self._drain_item(served, out, tel, rec,
-                                                  dur, ready, snaps)
+                        digest = self._drain_item(served, parts, rec, dur,
+                                                  snaps)
                 # finish *after* the drain span exits so collector_drain is
                 # part of the serialized per-window event list
                 if ctxs:
@@ -590,12 +817,14 @@ class AsyncStreamEngine(StreamEngine):
         except BaseException as e:  # noqa: BLE001
             self._fail(e)
 
-    def _drain_item(self, served, out, tel, rec, dur, ready, snaps=None):
-        """Move one retired step to the host and resolve its windows;
-        returns the step's telemetry digest (for trace completion), or None
-        when nothing downstream needs it."""
-        # one device-to-host copy per leaf, then cheap numpy slicing
-        out_h, tel_h = self._to_host((out, tel), ready)
+    def _drain_item(self, served, parts, rec, dur, snaps=None):
+        """Move one retired step (``parts``: each shard's ((out, tel),
+        ready)) to the host and resolve its windows; returns the step's
+        telemetry digest (for trace completion), or None when nothing
+        downstream needs it."""
+        trees, readys = [t for t, _ in parts], [r for _, r in parts]
+        # one device-to-host copy per leaf and shard, then numpy slicing
+        out_h, tel_h = self._rows_to_host(trees, readys)
         if self._auto:
             # feed the load-aware dispatcher's path-mix EWMA from the
             # host-resident trace (never blocks the dispatcher)
@@ -640,7 +869,7 @@ class AsyncStreamEngine(StreamEngine):
             # was delivered, which keeps the cross-process resume (skip the
             # first latest_seq windows) gap-free; duplicates on a replay are
             # fine (at-least-once)
-            self._put_snaps(snaps, ready)
+            self._put_snaps(snaps, readys)
         return digest
 
     def _drain_collect(self) -> list:

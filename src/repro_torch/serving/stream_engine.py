@@ -225,8 +225,8 @@ class StreamEngine:
                                 ((S, N, 4), torch.float32),
                                 ((S,), torch.int32))
         self._pad = None           # per-leaf pad lanes on the card
-        # the side stream of the device-to-host copies
-        self._copy_stream = None
+        # the side stream of the device-to-host copies, one a device
+        self._copy_streams: dict = {}
 
     @property
     def state(self) -> TorrState:
@@ -253,23 +253,38 @@ class StreamEngine:
             f"slot {slot} re-admitted with {len(self._pending[slot])} leaked "
             "backlog windows; retire() must drop them")
         self._slot_of[stream_id] = slot
-        task_weights = self._state.task_weights.clone()
-        task_weights[slot] = torch.as_tensor(task_w, dtype=torch.float32)
-        self._state = TorrState(
-            cache=query_cache.reset_slot(self._state.cache, self.cfg, slot),
-            task_weights=task_weights,
-        )
-        if snapshot is not None:
-            from . import state_store as ss
-            self._state = ss.restore_slot(self._state, self.cfg, slot,
-                                          snapshot)
-            self._served_count[stream_id] = int(snapshot.window_seq)
-        else:
-            self._served_count[stream_id] = 0
+        self._reset_slot(slot, task_w, snapshot)
+        self._served_count[stream_id] = (
+            0 if snapshot is None else int(snapshot.window_seq))
         self.stats.admitted += 1
         if self._obs is not None:
             self._obs.on_admit()
         return slot
+
+    def _reset_slot(self, slot: int, task_w, snapshot) -> None:
+        """Reset ``slot``'s rows of the state for a newly admitted stream
+        (the sharded async engine resets them on the slot's shard)."""
+        self._state = self._reset_row(self._state, slot, task_w, snapshot)
+
+    def _reset_row(self, state: TorrState, row: int, task_w,
+                   snapshot) -> TorrState:
+        """``state`` with row ``row`` reset: an empty cache and ``task_w``,
+        or the snapshot's rows."""
+        task_weights = state.task_weights.clone()
+        task_weights[row] = torch.as_tensor(task_w, dtype=torch.float32)
+        state = TorrState(
+            cache=query_cache.reset_slot(state.cache, self.cfg, row),
+            task_weights=task_weights,
+        )
+        if snapshot is not None:
+            from . import state_store as ss
+            state = ss.restore_slot(state, self.cfg, row, snapshot)
+        return state
+
+    def _rows_of(self, slot: int):
+        """(shard, state, row): the shard holding ``slot``, its state and
+        the slot's row there; one shard, the engine's state, here."""
+        return 0, self._state, slot
 
     def retire(self, stream_id) -> None:
         """Release a stream's slot, dropping any un-popped backlog."""
@@ -312,8 +327,12 @@ class StreamEngine:
     def busy(self) -> bool:
         return any(self._pending[s] for s in self._slot_of.values())
 
-    def _empty_batch(self) -> StreamBatch:
-        cfg, S, dev = self.cfg, self.n_slots, self.device
+    def _empty_batch(self, S: int | None = None, dev=None) -> StreamBatch:
+        """An all-pad batch of ``S`` slots (the engine's) on ``dev`` (the
+        engine's device)."""
+        cfg = self.cfg
+        S = self.n_slots if S is None else S
+        dev = self.device if dev is None else dev
         return StreamBatch(
             q_packed=torch.zeros((S, cfg.N_max, cfg.words), dtype=torch.int32,
                                  device=dev),
@@ -335,15 +354,24 @@ class StreamEngine:
                 host[slot] = x
             return buf
         if self._pad is None:
-            e = self._empty_batch()
-            self._pad = (e.q_packed[0], e.valid[0], e.boxes[0])
-        pad = self._pad[i]
+            self._pad = self._pad_lanes(self.device)
+        return self._stack_lanes(lanes, range(self.n_slots), self._pad[i],
+                                 self.device)
+
+    def _pad_lanes(self, dev) -> tuple:
+        """One all-pad lane of each window leaf on ``dev``."""
+        e = self._empty_batch(1, dev)
+        return e.q_packed[0], e.valid[0], e.boxes[0]
+
+    @staticmethod
+    def _stack_lanes(lanes, slots, pad, dev) -> torch.Tensor:
+        """The lanes of ``slots`` stacked on ``dev``, ``pad`` where a slot
+        has none."""
         return torch.stack([
             pad if slot not in lanes else
             lanes[slot] if isinstance(lanes[slot], torch.Tensor) else
-            torch.from_numpy(np.ascontiguousarray(lanes[slot])).to(
-                self.device)
-            for slot in range(self.n_slots)])
+            torch.from_numpy(np.ascontiguousarray(lanes[slot])).to(dev)
+            for slot in slots])
 
     def _assemble(self, gate=None):
         """Pop the head window of every busy slot into one padded batch.
@@ -443,23 +471,41 @@ class StreamEngine:
         on that stream, so its memory is not handed out again before the
         copy has read it; the caller keeps ``tree`` alive until this
         returns."""
-        if ready is None:
-            return capture.tree_map(lambda x: x.numpy(), tree)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        stream = self._copy_stream
-        stream.wait_event(ready)
+        return self._rows_to_host([tree], [ready])
 
-        def copy(x):
-            x.record_stream(stream)
-            return torch.empty(x.shape, dtype=x.dtype,
-                               pin_memory=True).copy_(x, non_blocking=True)
-
-        with torch.cuda.stream(stream):
-            host = capture.tree_map(copy, tree)
-            done = stream.record_event()
-        done.synchronize()
-        return capture.tree_map(lambda x: x.numpy(), host)
+    def _rows_to_host(self, trees: list, readys: list):
+        """:meth:`_to_host` of the shards' trees (alike, each leaf with a
+        leading slot axis) into one host tree, the shards' rows in order:
+        every shard's copies are enqueued (on its device's side stream,
+        after its own event) before any is waited for."""
+        if readys[0] is None:      # the CPU
+            if len(trees) == 1:
+                return capture.tree_map(lambda x: x.numpy(), trees[0])
+            rows = zip(*(capture.leaves(t) for t in trees))
+            return capture.tree_map(
+                lambda _x: torch.cat(next(rows)).numpy(), trees[0])
+        parts = [capture.leaves(t) for t in trees]
+        host = [torch.empty((sum(x.shape[0] for x in xs), *xs[0].shape[1:]),
+                            dtype=xs[0].dtype, pin_memory=True)
+                for xs in zip(*parts)]
+        dones, lo = [], 0
+        for xs, ready in zip(parts, readys):
+            dev = xs[0].device
+            stream = self._copy_streams.get(dev)
+            if stream is None:
+                stream = self._copy_streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_event(ready)
+            n = xs[0].shape[0]
+            with torch.cuda.stream(stream):
+                for h, x in zip(host, xs):
+                    x.record_stream(stream)
+                    h[lo:lo + n].copy_(x, non_blocking=True)
+                dones.append(stream.record_event())
+            lo += n
+        for done in dones:
+            done.synchronize()
+        it = iter(host)
+        return capture.tree_map(lambda _x: next(it).numpy(), trees[0])
 
     def _ready_event(self):
         """An event after everything launched so far on this thread's
@@ -498,25 +544,27 @@ class StreamEngine:
             n = self._served_count.get(stream_id, 0) + 1
             self._served_count[stream_id] = n
             if n % self._snapshot_every == 0:
-                snaps.append(ss.snapshot_rows(
-                    self._state, slot, stream_id, n, self._snap_meta()))
+                k, state, row = self._rows_of(slot)
+                snaps.append((k, ss.snapshot_rows(
+                    state, row, stream_id, n, self._snap_meta())))
         return snaps
 
-    def _put_snaps(self, snaps, ready) -> None:
+    def _put_snaps(self, snaps, readys) -> None:
         """Materialize and write the snapshots of one step: one copy to
-        the host per stacked leaf (``_to_host``: on the card a side stream
-        that waits for the step's event ``ready``, into pinned memory),
-        then the store's puts."""
+        the host per stacked leaf of each shard's state (``_to_host``: on
+        the card a side stream that waits for the shard's event in
+        ``readys``, into pinned memory), then the store's puts."""
         from . import state_store as ss
 
-        def to_host(state):
+        def to_host(state, ready):
             if ready is None:   # the CPU: a copy, not a view of the state
                 state = capture.tree_map(torch.clone, state)
             return self._to_host(state, ready)
 
         memo = {}
-        for pending in snaps:
-            self._store.put(ss.materialize_snapshot(pending, memo, to_host))
+        for k, pending in snaps:
+            self._store.put(ss.materialize_snapshot(
+                pending, memo, lambda st, r=readys[k]: to_host(st, r)))
 
     def _fold_one(self, tel, rec, ctxs, ready, snaps=None) -> None:
         """Move one backlogged step's telemetry to the host and consume it:
@@ -535,7 +583,7 @@ class StreamEngine:
                 digest = telemetry_digest(tel_h)
             self._trace_finish(ctxs, rec, digest)
         if snaps:
-            self._put_snaps(snaps, ready)
+            self._put_snaps(snaps, [ready])
 
     def _trace_finish(self, ctxs, rec, digest) -> None:
         """Complete one step's trace contexts: stamp the resolved plan and

@@ -286,22 +286,24 @@ def test_worker_error_surfaces_as_engine_dead():
 
 
 def test_mesh_must_be_one_device():
+    """The serial lowering cannot shard: refused with a mesh of several
+    devices (as repro refuses it); a one-device mesh runs the unsharded
+    path unchanged (no shards, no padding)."""
+    from repro_torch.runtime import sharding as shd
+
     im, _ = _memories()
-
-    class Mesh:
-        def __init__(self, n):
-            self.devices = np.arange(n)
-
-    with pytest.raises(ValueError, match="one card"):
-        AsyncStreamEngine(TCFG, im, n_slots=2, mesh=Mesh(2), paused=True,
-                          device="cpu")
+    with pytest.raises(ValueError, match="serial"):
+        AsyncStreamEngine(TCFG, im, n_slots=2, serial=True, paused=True,
+                          mesh=shd.stream_mesh(devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="DeadlineTracker"):
         AsyncStreamEngine(TCFG, im, n_slots=2, paused=True, device="cpu",
                           governor=Governor(TCFG, GovernorPolicy(budget_s=1.0)))
-    eng = AsyncStreamEngine(TCFG, im, n_slots=2, mesh=Mesh(1), paused=True,
-                            device="cpu")
-    eng.close()
-    assert eng.n_slots == 2
+    for serial in (False, True):
+        eng = AsyncStreamEngine(TCFG, im, n_slots=3, serial=serial,
+                                mesh=shd.stream_mesh(devices=["cpu"]),
+                                paused=True, device="cpu")
+        eng.close()
+        assert eng.n_slots == 3 and eng.shards is None
 
 
 def test_governed_async_flight_matches_governor_plan_log():

@@ -86,11 +86,20 @@ def test_sync_run_serves_every_window_with_metrics_endpoint(capsys):
     assert "mode=sync" in out and "metrics endpoint http://127.0.0.1:" in out
 
 
-def test_launcher_rejects_more_than_one_card():
-    with pytest.raises(ValueError, match="one"):
-        serve.run_torr_streams(2, 1, mesh_devices=2, device="cpu")
+def test_launcher_rejects_more_than_one_card(monkeypatch, capsys):
+    """``--mesh N`` above the card count is refused (here one card is
+    pretended present; the CLI exits before touching it)."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices, only 1"):
+        serve.stream_mesh_for(2, torch.device("cuda"))
     with pytest.raises(SystemExit):
-        serve.main(["--torr-streams", "2", "--mesh", "4", "--device", "cpu"])
+        serve.main(["--torr-streams", "2", "--mesh", "2"])
+    assert "requested 2 devices, only 1 present" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--torr-streams", "2", "--mesh", "-2", "--device",
+                    "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu"])     # no --torr-streams
 
