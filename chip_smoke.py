@@ -45,7 +45,9 @@ bit:
      with up to N_max proposals), features -> ``ops.encode_packed`` on the
      card -> ``StreamEngine.submit`` -> ``step`` -> ``sync``; the outputs,
      telemetry and final caches must be bit-equal to the same engine on the
-     CPU (the plain versions);
+     CPU (the plain versions), which runs in a process of its own beside
+     phases 5-8 (host-bound Python, about 100 s a traffic) and is checked
+     before phase 9;
   4. a reuse check on the same streams cut to K proposals per window (K is
      the cache depth): bypass and delta must occur after each stream's
      first window, and the card must again equal the CPU engine;
@@ -255,7 +257,11 @@ bit:
      musicgen-large's and llama-3.2-vision-90b's smoke configs (float32,
      float32 scores) on a 2x2 ("data", "model") gloo mesh of 4 spawned CPU
      ranks under this host's torch, against the plain step: logits and
-     every cache tensor within 1e-4 of its largest magnitude, within 45 s.
+     every cache tensor within 1e-4 of its largest magnitude, within 45 s;
+     (g) the int8 decode of qwen3-14b's widths cut to 4 layers (bf16,
+     batch 4, 16 tokens from ``init_cache``) on the 1x1 NCCL mesh: every
+     step's logits and the final cache bit-equal to the plain int8
+     decode, ``int8_dot`` launched twice a layer and step.
  19. the stream-sharded async engine (run after 18, before 10;
      ``phase_stream_mesh``): ``AsyncStreamEngine(mesh=)`` at the edge
      config, 15 streams padded to 16 slots over every visible card (one
@@ -267,6 +273,29 @@ bit:
      launches (``phase19_shard<k>_launches``); the launcher refuses
      ``--mesh`` above the card count and serves ``--mesh -1``; within
      60 s.
+ 20. the mesh on cards (run after 19, before 10; ``phase_mesh_cards``):
+     one NCCL rank a card in spawned processes, n = 4 with four cards or
+     more, 2 with two or three; every plain reference is the same work on
+     rank 0's card while the other ranks wait at a barrier: (a) phase
+     17's cell on 2x2 and 1x4 (1x2 and 2x1): 4 steps against the plain
+     ones, losses rtol 1e-3 and mu within 0.1 of each leaf's largest,
+     then 4 more; ms/step (median after the first), tokens/s, peak
+     memory a card and the NCCL kernels' device time in the last step,
+     profiled on rank 0;
+     (b) the six families' smoke configs in float32 on 2x2 (1x2): train,
+     prefill, decode and (dense, MoE) an int8 decode, by
+     ``tests/test_torch_mesh_run.py``'s rules; (c) the int8 decode at
+     qwen3-14b's full config on 1x4 (1x2), softmax within 0.05 of the
+     bf16 cache's decode and logits within 2e-2 of one card's (or 1.5x
+     the bf16 cache's own mesh-to-card distance where that is larger),
+     ``int8_dot`` 1,280 launches a rank (``phase20_launches``); (d)
+     ``moe_ffn_ep`` over n ranks in float32 against ``moe_ffn``; (e)
+     ``compressed_psum`` and the reference's multipod loop; (f) the
+     pipeline over n stages; (g) the elastic restore onto half the ranks;
+     (h) ``torch.distributed.run`` of the trainer, clean and faulted,
+     "loss improved". Within 300 s of the ranks' start. With one card it
+     prints that it needs two and returns ``"run": false``.
+     ``--phases mesh-cards`` runs 1, 18 (g) and 20 alone.
 
 Each path's kernel launches are counted from zero around that path's run
 and must all be above zero; a replayed graph adds the launches its
@@ -327,6 +356,7 @@ STREAMS, WINDOWS = 16, 4
 # longer than the served one
 REUSE_WINDOWS = 10
 CPU_WINDOWS = 4             # windows the CPU reference engines replay
+CPU_ENGINE_LIMIT_S = 600.0  # the serving phase's CPU engines, from their start
 SERIAL_WINDOWS = 2          # the serial engine serves the first windows
 EVAL_FRAMES = 4             # frames per task of the evaluate_task phase
 PLAN_WINDOWS = 2            # windows per stream of each plan-ladder run
@@ -1277,11 +1307,10 @@ def _assert_caches_equal(label, cache, ref_cache):
             raise AssertionError(f"{label} final cache.{f.name} differs")
 
 
-def _equal_to_cpu(cfg, sys_, frames, res, states, words, label, n,
-                  plan=None):
-    """The same engine on the CPU (plain versions), fed the card's packed
-    words (the same backlog) under the same latched ``plan``, must give
-    bit-equal outputs, telemetry and caches over its first ``n`` steps."""
+def _cpu_engine(cfg, sys_, frames, words, n, plan=None):
+    """The engine on the CPU (plain versions), fed the card's packed words
+    (the same backlog) under the same latched ``plan``, over its first
+    ``n`` steps: (per-stream results, final cache, seconds)."""
     from repro_torch.perf.profile_step import submit_step
     from repro_torch.serving.stream_engine import StreamEngine
 
@@ -1293,27 +1322,84 @@ def _equal_to_cpu(cfg, sys_, frames, res, states, words, label, n,
         cpu.admit(f"cam{s}", sys_.task_w[s % sys_.task_w.shape[0]])
     for t, w in enumerate(words):
         submit_step(cpu, frames, t, w.cpu())
-    res_cpu = {sid: [] for sid in res}
+    res_cpu = {f"cam{s}": [] for s in range(S)}
     for _ in range(n):
         for sid, r in cpu.step().items():
             res_cpu[sid].append(r)
-    log(f"[{label}] cpu reference engine, {n} windows: "
-        f"{time.perf_counter() - t0:.1f} s")
+    return res_cpu, cpu.state.cache, time.perf_counter() - t0
+
+
+def _cpu_engine_process(out_path, *args):
+    """:func:`_cpu_engine` in a spawned process (the CPU only), its
+    result pickled to ``out_path``."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    with open(out_path, "wb") as f:
+        pickle.dump(_cpu_engine(*args), f)
+
+
+def _start_cpu_engine(cfg, sys_, frames, words, n):
+    """:func:`_cpu_engine` started in a process of its own, so the card's
+    phases go on beside it (it is host-bound Python, about 100 s)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "cpu_engine.pkl")
+    proc = mp.get_context("spawn").Process(
+        target=_cpu_engine_process,
+        args=(out, cfg, sys_, frames, [w.cpu() for w in words], n),
+        daemon=True)
+    proc.start()
+    return proc, tmp, out
+
+
+def _cpu_engine_result(started):
+    """The result of :func:`_start_cpu_engine` (waiting at most
+    CPU_ENGINE_LIMIT_S for it; a failed or late process fails the run)."""
+    import pickle
+
+    proc, tmp, out = started
+    try:
+        proc.join(timeout=CPU_ENGINE_LIMIT_S)
+        if proc.is_alive() or proc.exitcode != 0:
+            raise AssertionError(f"the CPU reference engine's process "
+                                 f"failed (exit {proc.exitcode})")
+        with open(out, "rb") as f:
+            return pickle.load(f)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        tmp.cleanup()
+
+
+def _equal_to_cpu(label, res, states, n, cpu_run):
+    """The card engine's first ``n`` steps (``res``, ``states``) bit-equal
+    to the CPU engine's (``cpu_run``, :func:`_cpu_engine`'s result) in
+    outputs, telemetry and caches."""
+    res_cpu, cache_cpu, secs = cpu_run
+    log(f"[{label}] cpu reference engine, {n} windows: {secs:.1f} s")
     for sid, wins in res_cpu.items():
         if len(wins) != n:
             raise AssertionError(f"{label} {sid}: {len(wins)} windows")
     _assert_results_equal(label, res_cpu, res)
-    _assert_caches_equal(label, states[n - 1].cache, cpu.state.cache)
+    _assert_caches_equal(label, states[n - 1].cache, cache_cpu)
     log(f"[{label}] card engine == CPU engine over {n} windows: outputs, "
         f"telemetry and caches bit-equal")
 
 
-def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs):
+def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs,
+                  checks):
     """The multi-stream step's default (prefix) lowering on the card, its
-    first ``cpu_windows`` windows checked bit-equal to the CPU engine;
-    returns its results and the state after each step for the other
-    lowerings to be held to, and its packed words; records the run for
-    :func:`phase_eager`."""
+    first ``cpu_windows`` windows to be held bit-equal to the CPU engine,
+    which starts in a process of its own (``checks`` gets the check, to
+    run once it has ended); returns its results and the state after each
+    step for the other lowerings to be held to, and its packed words;
+    records the run for :func:`phase_eager`."""
     eng, res, states, words, launches, step_ms = _serve_card(
         cfg, sys_, frames, report, label)
     _require_launched(label, launches,
@@ -1331,7 +1417,9 @@ def phase_serving(cfg, sys_, frames, report, label, cpu_windows, runs):
                 raise AssertionError(f"{sid}: bad scores")
             if int(tel.fused_mode) != FUSED_PREFIX:
                 raise AssertionError(f"{sid}: fused_mode {tel.fused_mode}")
-    _equal_to_cpu(cfg, sys_, frames, res, states, words, label, cpu_windows)
+    started = _start_cpu_engine(cfg, sys_, frames, words, cpu_windows)
+    checks.append(lambda: _equal_to_cpu(label, res, states, cpu_windows,
+                                        _cpu_engine_result(started)))
     _captured_run(runs, label, res, eng.state.cache, step_ms, len(eng.graphs),
                   _eager_serve(cfg, sys_, frames, label, words))
     return res, states, words
@@ -1657,8 +1745,8 @@ def phase_plans(cfg, sys_, served, reuse, runs):
                 f"{_path_mix(frames, base_res)}")
             if traffic == "reuse" and \
                     (plan.banks, plan.planes) in PLAN_CPU_LEVELS:
-                _equal_to_cpu(cfg, sys_, frames, base_res, base_states,
-                              words, tag, T, plan=plan)
+                _equal_to_cpu(tag, base_res, base_states, T, _cpu_engine(
+                    cfg, sys_, frames, words, T, plan=plan))
     log(f"[plan ladder graphs] {sum(n_graphs)} graphs captured over "
         f"{len(n_graphs)} engines and switch streams (at most "
         f"{max(n_graphs)} each); torch.cuda.memory_reserved "
@@ -4631,6 +4719,12 @@ MESH_STEPS = 3
 # deepseek-v2-236b's MoE widths for moe_ffn_ep (bf16 experts: 7.5 GB)
 EP_ARCH, EP_BATCH, EP_SEQ = "deepseek-v2-236b", 4, 2048
 EP_OF_MAX = 2.0 ** -7
+# moe_ffn_ep's placements: the expert stacks and the shared experts'
+# columns over 'model', the router whole
+EP_SPECS = {"router": (), "w_gate": ("model", None, None),
+            "w_up": ("model", None, None), "w_down": ("model", None, None),
+            "shared_gate": (None, "model"), "shared_up": (None, "model"),
+            "shared_down": ("model", None)}
 PIPE_LAYERS, PIPE_D, PIPE_MICRO, PIPE_MB = 4, 1024, 4, 8
 DRYRUN_ARCH, DRYRUN_SHAPE = "deepseek-7b", "train_4k"
 DRYRUN_FLOPS_RATIO = 2.0    # (d): the most FLOPs over model_flops
@@ -4762,15 +4856,9 @@ def _mesh_ep(mesh) -> dict:
             got = {k: v.grad.clone() for k, v in flat.items()}
             got["x"] = x.grad.clone()
         else:
-            specs = {"router": (), "w_gate": ("model", None, None),
-                     "w_up": ("model", None, None),
-                     "w_down": ("model", None, None),
-                     "shared_gate": (None, "model"),
-                     "shared_up": (None, "model"),
-                     "shared_down": ("model", None)}
             from torch.distributed.tensor import distribute_tensor
             dp = {k: distribute_tensor(v.detach(), mesh,
-                                       shd.placements(specs[k], mesh))
+                                       shd.placements(EP_SPECS[k], mesh))
                   .requires_grad_(True) for k, v in flat.items()}
             xs = distribute_tensor(x.detach(), mesh, shd.placements(
                 ("data", None, None), mesh)).requires_grad_(True)
@@ -4819,6 +4907,24 @@ def _mesh_ep(mesh) -> dict:
     return row
 
 
+def _pipe_inputs():
+    """The pipeline checks' layers W [PIPE_LAYERS, PIPE_D, PIPE_D] and
+    microbatches [PIPE_MICRO, PIPE_MB, PIPE_D], from seed 0 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W = (torch.randn(PIPE_LAYERS, PIPE_D, PIPE_D, generator=gen,
+                     device="cuda") * PIPE_D ** -0.5)
+    xs = torch.randn(PIPE_MICRO, PIPE_MB, PIPE_D, generator=gen,
+                     device="cuda")
+    return W, xs
+
+
+def _pipe_stage(params, x):
+    """A stage: tanh(x @ W) for each of its layers."""
+    for i in range(params.shape[0]):
+        x = torch.tanh(x @ params[i])
+    return x
+
+
 def _mesh_pipeline() -> dict:
     """(c) pipeline_apply over a pod axis of one rank against the
     sequential model: forward and gradients."""
@@ -4827,22 +4933,12 @@ def _mesh_pipeline() -> dict:
                                                         split_stages)
 
     mesh = make_host_mesh(1, 1, pod=1, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    W = (torch.randn(PIPE_LAYERS, PIPE_D, PIPE_D, generator=gen,
-                     device="cuda") * PIPE_D ** -0.5)
-    xs = torch.randn(PIPE_MICRO, PIPE_MB, PIPE_D, generator=gen,
-                     device="cuda")
-
-    def stage_fn(params, x):
-        for i in range(params.shape[0]):
-            x = torch.tanh(x @ params[i])
-        return x
-
+    W, xs = _pipe_inputs()
     Wp = W.clone().requires_grad_(True)
-    out = pipeline_apply(stage_fn, split_stages(Wp, 1), xs, mesh, "pod")
+    out = pipeline_apply(_pipe_stage, split_stages(Wp, 1), xs, mesh, "pod")
     torch.sum(out ** 2).backward()
     Ws = W.clone().requires_grad_(True)
-    seq = torch.stack([stage_fn(Ws, xs[i]) for i in range(PIPE_MICRO)])
+    seq = torch.stack([_pipe_stage(Ws, xs[i]) for i in range(PIPE_MICRO)])
     torch.sum(seq ** 2).backward()
     f_err = (out - seq).abs().max().item()
     g_err = (Wp.grad - Ws.grad).abs().max().item()
@@ -5092,9 +5188,10 @@ def phase_mesh(report, cfg, sys_, served):
     the op analyzer on the card and on the CPU; (f) one decode step of
     musicgen-large's and llama-3.2-vision-90b's smoke configs on a 2x2
     gloo mesh of 4 CPU ranks against the plain step (started after (e),
-    beside the dry-run's wait). None of it launches a hand-written kernel
-    except (e)'s TorR step, whose launches are counted from 0 around the
-    phase (``phase18_launches``)."""
+    beside the dry-run's wait); (g) the int8 decode on the 1x1 mesh
+    against the plain one. Only (e)'s TorR step and (g)'s ``int8_dot``
+    launch hand-written kernels, counted from 0 around the phase
+    (``phase18_launches``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import build
@@ -5114,6 +5211,7 @@ def phase_mesh(report, cfg, sys_, served):
             started = _start_dryrun()
             row["ep"] = _mesh_ep(mesh)
             row["pipeline"] = _mesh_pipeline()
+            row["int8"] = _mesh_int8(mesh)
         row["analyzer"] = _mesh_analyzer(cfg, sys_, served)
     except BaseException:
         if started is not None:     # stop the dry-run with the phase
@@ -5284,12 +5382,996 @@ def phase_stream_mesh(cfg, sys_, cases, report):
                 layout=layout, rows=rows, cli=cli, seconds=wall)
 
 
-def main() -> int:
+# phase 20: the mesh on cards, one NCCL rank a card in spawned processes
+MULTIPOD_STEPS, MULTIPOD_LOSS = 60, 0.5     # (e): the reference's loop
+
+
+def _multipod_loop(mesh, device) -> float:
+    """(e) The reference's multipod loop (``tests/test_distributed.py:
+    79-113``) on a ("pod", "data", "model") mesh: least squares, each pod
+    its rows of 8 numpy-drawn samples a step, the int8 compressed
+    gradient sum over 'pod' divided by the pod count
+    (``grad_compress.make_dp_compressed_train_step``), AdamW at lr 5e-2
+    without warm-up or decay, MULTIPOD_STEPS steps; returns the last
+    step's loss averaged over the pods (the reference's pmean)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compress as gc
+
+    group = mesh.get_group("pod")
+    pods, pod = dist.get_world_size(group), mesh.get_local_rank("pod")
+    ocfg = adamw.OptimConfig(lr=5e-2, warmup_steps=0, total_steps=100,
+                             weight_decay=0.0)
+    W = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 2)).astype(np.float32)).to(device)
+    step = gc.make_dp_compressed_train_step(
+        lambda p, b: (torch.mean((b[0] @ p["w"] - b[1]) ** 2), {}),
+        lambda p, g, o: adamw.apply_updates(p, g, o, ocfg), group)
+    p = {"w": torch.zeros((4, 2), device=device)}
+    err, opt = gc.init_error_state(p), adamw.init_opt_state(p)
+    rows = 8 // pods
+    for i in range(MULTIPOD_STEPS):
+        x = torch.from_numpy(np.random.default_rng(i + 1).standard_normal(
+            (8, 4)).astype(np.float32)[pod * rows:(pod + 1) * rows]
+        ).to(device)
+        p, err, opt, m = step(p, err, opt, (x, x @ W))
+    loss = m["loss"].clone()
+    dist.all_reduce(loss, group=group)
+    return float(loss) / pods
+
+
+CARDS_LIMIT_S = 300.0
+CARDS_STEPS = 4             # (a): steps compared, mesh against plain;
+CARDS_MORE_STEPS = 4        # then on each mesh more timed steps, the last
+#                             under torch.profiler on rank 0
+CARDS_LOSS_RTOL, CARDS_MU_OF_MAX = 1e-3, 0.1    # (a): the bfloat16 rule
+# (b), (d): float32 (score products too): losses and metrics rtol 1e-5,
+# every other tensor within 1e-4 of its largest magnitude (nu, a square,
+# 2e-4), tests/test_torch_mesh_run.py's rules
+CARDS_F32_RTOL, CARDS_F32_OF_MAX = 1e-5, 1e-4
+CARDS_SMOKE_B, CARDS_SMOKE_S = 4, 64
+CARDS_FAMILIES = ("qwen3-14b", "musicgen-large", "llama-3.2-vision-90b",
+                  "deepseek-v2-236b", "recurrentgemma-2b", "xlstm-1.3b")
+CARDS_OCFG = dict(lr=1e-2, warmup_steps=1)      # (b): AdamW's first step
+CARDS_INT8_ARCH = "qwen3-14b"
+# (c): the mesh's int8 logits against one card's: within 2e-2 of their
+# largest magnitude, or, where the bf16 cache's decode on the same mesh is
+# farther than that from one card's (the dense layers' bf16 partial sums
+# added in another order, 40 times over), within 1.5x that distance: the
+# int8 path may add half again to the sum order's own distance
+CARDS_INT8_OF_MAX, CARDS_INT8_OVER_BF16 = 2e-2, 1.5
+# (f): tests/test_torch_pipeline_parallel.py's rules
+CARDS_PIPE_ATOL, CARDS_PIPE_GRAD_TOL = 1e-5, 1e-4
+CARDS_TRAIN_CLI = ["--arch", "gemma-7b", "--smoke", "--steps", "40",
+                   "--batch", "8", "--seq", "64"]
+CARDS_CLI_FAULT = ["--fault-at", "23", "--ckpt-every", "10"]
+# 18 (g): qwen3-14b's widths cut to 4 layers on the 1x1 NCCL mesh
+MESH_INT8_LAYERS = 4
+
+
+def _decode_tokens(step, cache, toks):
+    """``cache, logits = step(cache, toks[:, t])`` for every t: each
+    step's whole logits and ms (synced), and the last cache."""
+    logits, ms = [], []
+    for t in range(toks.shape[1]):
+        (cache, lg), dt = _synced_ms(lambda: step(cache, toks[:, t]))
+        logits.append(_whole(lg))
+        ms.append(dt)
+    return logits, ms, cache
+
+
+def _cards_meshes(n: int) -> dict:
+    """Phase 20's mesh shapes on n (4 or 2) cards: ("data", "model")
+    unless three entries, ("pod", "data", "model")."""
+    if n == 4:
+        return dict(train=((2, 2), (1, 4)), smoke=(2, 2), int8=(1, 4),
+                    ep=(1, 4), compress=(2, 2), pod=(2, 1, 2),
+                    pipe=(4, 1, 1), save=(2, 2), restore=(1, 2),
+                    cli=(2, 2))
+    return dict(train=((1, 2), (2, 1)), smoke=(1, 2), int8=(1, 2),
+                ep=(1, 2), compress=(2, 1), pod=(2, 1, 1), pipe=(2, 1, 1),
+                save=(1, 2), restore=(1, 1), cli=(2, 1))
+
+
+def _mesh_of(shape):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if len(shape) == 3:
+        return make_host_mesh(shape[1], shape[2], pod=shape[0],
+                              device="cuda")
+    return make_host_mesh(*shape, device="cuda")
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    dist.barrier(device_ids=[torch.cuda.current_device()])
+
+
+def _on_rank0(fn):
+    """``fn()`` on rank 0 while the other ranks wait at a barrier; its
+    result on rank 0, None on the others."""
+    import torch.distributed as dist
+
+    out = fn() if dist.get_rank() == 0 else None
+    _barrier()
+    return out
+
+
+def _whole(t):
+    """A DTensor's full tensor (a collective: every rank calls it), a
+    plain tensor as it is; detached."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def _of_max(got, want) -> float:
+    """max |got - want| over max |want| (float64)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30) if want.numel() else 0.0
+
+
+def _free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _peak_reset():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _gather_obj(x) -> list:
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, x)
+    return out
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _nccl_profile(fn) -> tuple:
+    """``fn()`` under torch.profiler: (its result, wall ms, device busy
+    ms, the NCCL kernels' device ms, the top NCCL kernels). The device
+    rows of user annotations (c10d's ``nccl:all_reduce`` ranges span the
+    kernels they launch) are left out, so no kernel counts twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, wall = _synced_ms(fn)
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if us and "CUDA" in str(getattr(evt, "device_type", "")) and \
+                evt.key not in ranges and not evt.key.startswith("nccl:"):
+            kernels.append((us / 1e3, evt.key, evt.count))
+    kernels.sort(reverse=True)
+    nccl = [k for k in kernels if "nccl" in k[1].lower()]
+    return (out, wall, sum(k[0] for k in kernels), sum(k[0] for k in nccl),
+            [dict(name=k[1][:90], ms=k[0], calls=k[2]) for k in nccl[:6]])
+
+
+def _cards_train(shapes) -> dict:
+    """(a) Phase 17's cell (deepseek-7b's widths, 4 of 30 layers, bf16,
+    remat "nothing", AdamW, 4 x 2048 TokenStream tokens) for CARDS_STEPS
+    steps plain on rank 0's card, then on each mesh of ``shapes`` from
+    the same seed: every step's loss within rtol CARDS_LOSS_RTOL and mu
+    after them within CARDS_MU_OF_MAX of each leaf's largest; then
+    CARDS_MORE_STEPS more on the mesh, the last profiled on rank 0. ms/step
+    (median after the first: a mesh's first steps start DTensor's
+    propagation and NCCL's communicators), tokens/s, each card's peak
+    memory_allocated, the NCCL kernels' device ms in the profiled step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat_policy="nothing")
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [stream.batch_at(i)
+               for i in range(CARDS_STEPS + CARDS_MORE_STEPS)]
+    ocfg = adamw.OptimConfig(**TRAIN_OPT)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def plain():
+        _peak_reset()
+        state = steps.init_train_state(cfg, seed=0, device="cuda")
+        params, opt = state["params"], state["opt"]
+        del state
+        step = steps.make_train_step(cfg, ocfg, device="cuda")
+        ms, losses = [], []
+        for b in batches[:CARDS_STEPS]:
+            (params, opt, m), t = _synced_ms(lambda: step(params, opt, b))
+            ms.append(t)
+            losses.append(float(m["loss"]))
+        mu = opt["mu"]
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt, m, step
+        _free_card()
+        return dict(ms=ms, losses=losses, mu=mu, peak_bytes=peak)
+
+    ref = _on_rank0(plain)
+    rows = []
+    for shape in shapes:
+        mesh = _mesh_of(shape)
+        _peak_reset()
+        state = steps.init_train_state(cfg, seed=0, device="cuda")
+        params = shd.distribute(state["params"], shd.params_sharding(
+            state["params"], mesh))
+        opt = shd.distribute(state["opt"], shd.params_sharding(
+            state["opt"], mesh))
+        del state
+        _free_card()
+        step = steps.make_train_step(cfg, ocfg, mesh=mesh)
+        ms, losses, worst = [], [], 0.0
+        for i, b in enumerate(batches):
+            if i < len(batches) - 1:
+                (params, opt, m), t = _synced_ms(
+                    lambda: step(params, opt, b))
+                ms.append(t)
+            elif dist.get_rank() == 0:
+                (params, opt, m), wall, busy, nccl, top = _nccl_profile(
+                    lambda: step(params, opt, b))
+            else:
+                params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            if i == CARDS_STEPS - 1:        # mu where the plain run ended
+                for k in sorted(opt["mu"]):
+                    got = _whole(opt["mu"][k])
+                    if ref is not None:
+                        worst = max(worst, _of_max(got, ref["mu"][k]))
+                    del got
+        peaks = _gather_obj(torch.cuda.max_memory_allocated())
+        del params, opt, m, step
+        _free_card()
+        if ref is None:
+            continue
+        bad = [(a, b) for a, b in zip(losses, ref["losses"])
+               if abs(a - b) > CARDS_LOSS_RTOL * abs(b)]
+        if bad or worst > CARDS_MU_OF_MAX:
+            raise AssertionError(
+                f"mesh cards (a) {shape}: losses {losses} against plain "
+                f"{ref['losses']}, mu {worst:.3g} of a leaf's largest "
+                f"(rules rtol {CARDS_LOSS_RTOL}, {CARDS_MU_OF_MAX})")
+        med = statistics.median(ms[1:])
+        rows.append(dict(mesh=list(shape), losses=losses, ms=ms,
+                         ms_per_step=med, tokens_per_s=tokens / med * 1e3,
+                         mu_of_max=worst, peak_bytes=peaks,
+                         profiled_wall_ms=wall, busy_ms=busy, nccl_ms=nccl,
+                         nccl_share=nccl / wall, top_nccl=top))
+    if ref is None:
+        return None
+    med = statistics.median(ref["ms"][1:])
+    return dict(arch=TRAIN_ARCH, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=CARDS_STEPS,
+                plain=dict(losses=ref["losses"], ms=ref["ms"],
+                           ms_per_step=med, tokens_per_s=tokens / med * 1e3,
+                           peak_bytes=ref["peak_bytes"]),
+                meshes=rows)
+
+
+def _cards_smoke_family(arch, mesh) -> dict | None:
+    """(b) One family's smoke config in float32 (float32 score products):
+    the train step (AdamW's first), prefill (capacity S + 8), one decode
+    step, and for the dense and MoE families one int8 decode step from
+    ``init_cache``, plain on rank 0's card and on ``mesh``; the largest
+    error of each against its rule."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.tokens import TokenStream, to_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    cfgq = dataclasses.replace(cfg, serve_quant="int8")
+    params = tf.init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                            "cuda")
+    _lm_offsets(params, torch.Generator("cuda").manual_seed(6))
+    flat = {k: v.detach() for k, v in params.state_dict().items()}
+    del params
+    batch = TokenStream(cfg, CARDS_SMOKE_B, CARDS_SMOKE_S).batch_at(0)
+    prompt = {k: v for k, v in to_device(batch, "cuda").items()
+              if k in ("tokens", "vision")}
+    last = prompt["tokens"][:, -1]
+    ocfg = adamw.OptimConfig(**CARDS_OCFG)
+    int8 = cfg.family in ("dense", "moe")
+    S = CARDS_SMOKE_S
+
+    def run(mesh):
+        placed = flat if mesh is None else shd.distribute(
+            flat, shd.params_sharding(flat, mesh))
+        out = {}
+        step = steps.make_train_step(cfg, ocfg, device="cuda", mesh=mesh)
+        _, opt, m = step(placed, adamw.init_opt_state(flat), batch)
+        out["metrics"] = {k: float(_whole(v)) for k, v in m.items()}
+        out["mu"] = {k: _whole(v) for k, v in opt["mu"].items()}
+        out["nu"] = {k: _whole(v) for k, v in opt["nu"].items()}
+        cache, logits = steps.make_prefill(cfg, s_max=S + 8, mesh=mesh)(
+            placed, prompt)
+        out["prefill"] = [_whole(t).clone() for t in
+                          [logits] + _lm_leaves(cache)]
+        cache, logits = steps.make_decode_step(cfg, mesh=mesh)(
+            placed, cache, last)
+        out["decode"] = [_whole(t) for t in [logits] + _lm_leaves(cache)]
+        if int8:
+            cq = tf.init_cache(cfgq, CARDS_SMOKE_B, S + 8, "cuda")
+            cq, lq = steps.make_decode_step(cfgq, mesh=mesh)(placed, cq,
+                                                             last)
+            out["int8 decode"] = [_whole(t) for t in [lq] + _lm_leaves(cq)]
+        return out
+
+    ref = _on_rank0(lambda: run(None))
+    got = run(mesh)
+    if ref is None:
+        return None
+    errs = {}
+    for k, want in ref["metrics"].items():
+        if abs(got["metrics"][k] - want) > CARDS_F32_RTOL * abs(want) + 1e-7:
+            raise AssertionError(f"mesh cards (b) {arch}: {k} "
+                                 f"{got['metrics'][k]} against {want}")
+    errs["metrics_rel"] = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+                              for k, v in ref["metrics"].items())
+    for name, rule in (("mu", CARDS_F32_OF_MAX), ("nu", 2 * CARDS_F32_OF_MAX)):
+        errs[name] = max(_of_max(got[name][k], v)
+                         for k, v in ref[name].items())
+        if errs[name] > rule:
+            raise AssertionError(f"mesh cards (b) {arch}: {name} "
+                                 f"{errs[name]:.3g} of a leaf's largest")
+    for step in ("prefill", "decode", "int8 decode"):
+        if step not in ref:
+            continue
+        errs[step] = max(_of_max(a, b) for a, b in zip(got[step], ref[step]))
+        if errs[step] > CARDS_F32_OF_MAX:
+            raise AssertionError(f"mesh cards (b) {arch} {step}: "
+                                 f"{errs[step]:.3g} of a tensor's largest")
+    return errs
+
+
+def _cards_int8(shape) -> dict:
+    """(c) The int8 decode at CARDS_INT8_ARCH's full config (bf16 random
+    weights from seed 0, batch REC_BATCH, INT8_T tokens from
+    ``init_cache``, S_max INT8_S_MAX): on one card (rank 0) and on the
+    mesh, where the bf16 cache's decode runs too (and on one card beside
+    the int8 one). Each mesh step's softmax within INT8_SOFTMAX_TOL of the
+    bf16 cache's on the mesh, its logits within the larger of
+    CARDS_INT8_OF_MAX and CARDS_INT8_OVER_BF16 times the bf16 cache's own
+    mesh-to-card distance, of their largest magnitude of one card's; ``int8_dot`` launches on each rank counted from 0 around the
+    mesh's int8 run; ms/token (median after the first) of both."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    cfg = get(CARDS_INT8_ARCH)
+    cfgq = dataclasses.replace(cfg, serve_quant="int8")
+    toks = _lm_prompt(cfg, REC_BATCH, INT8_T, 9, "cuda")["tokens"]
+
+    def weights():
+        return tf.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                              "cuda")
+
+    def decode(c, step):
+        return _decode_tokens(step, tf.init_cache(c, REC_BATCH, INT8_S_MAX,
+                                                  "cuda"), toks)[:2]
+
+    def plain():
+        params = weights()
+        out = decode(cfgq, lambda c, tok: tf.decode_step(params, c, tok,
+                                                         cfgq))
+        bf16 = decode(cfg, lambda c, tok: tf.decode_step(params, c, tok,
+                                                         cfg))[0]
+        del params
+        _free_card()
+        return (*out, bf16)
+
+    ref = _on_rank0(plain)
+    mesh = _mesh_of(shape)
+    full = dict(weights().state_dict())
+    specs = shd.params_sharding(full, mesh)
+    placed = {}
+    for k in list(full):
+        placed[k] = shd.distribute(full.pop(k).detach(), specs[k])
+    del full
+    _free_card()
+    step_b = steps.make_decode_step(cfg, mesh=mesh)
+    logits_b, _ = decode(cfg, lambda c, tok: step_b(placed, c, tok))
+    step_q = steps.make_decode_step(cfgq, mesh=mesh)
+    build.reset_launches()
+    logits_q, ms = decode(cfgq, lambda c, tok: step_q(placed, c, tok))
+    launches = _gather_obj(build.LAUNCHES["int8_dot"])
+    del placed
+    _free_card()
+    if ref is None:
+        return None
+    want = 2 * cfg.n_layers * INT8_T
+    if any(n != want for n in launches):
+        raise AssertionError(f"mesh cards (c): int8_dot launched {launches} "
+                             f"times a rank, {want} expected")
+    sm = max(float((torch.softmax(a.float(), -1)
+                    - torch.softmax(b.float(), -1)).abs().max())
+             for a, b in zip(logits_b, logits_q))
+    of_max = max(_of_max(a, b) for a, b in zip(logits_q, ref[0]))
+    # beside it, the bf16 cache's decode on the mesh against one card's
+    bf16_of_max = max(_of_max(a, b) for a, b in zip(logits_b, ref[2]))
+    rule = max(CARDS_INT8_OF_MAX, CARDS_INT8_OVER_BF16 * bf16_of_max)
+    if not sm < INT8_SOFTMAX_TOL or of_max > rule:
+        raise AssertionError(
+            f"mesh cards (c): softmax {sm:.3g} from the bf16 cache's (rule "
+            f"{INT8_SOFTMAX_TOL}), logits {of_max:.3g} of their largest from "
+            f"one card's (rule {rule:.3g}; the bf16 cache's decode "
+            f"{bf16_of_max:.3g})")
+    return dict(arch=CARDS_INT8_ARCH, layers=cfg.n_layers, mesh=list(shape),
+                batch=REC_BATCH, tokens=INT8_T, max_softmax_diff=sm,
+                logits_of_max=of_max, bf16_logits_of_max=bf16_of_max,
+                logits_rule=rule,
+                int8_dot_launches=launches,
+                mesh_ms_per_token=statistics.median(ms[1:]),
+                card_ms_per_token=statistics.median(ref[1][1:]),
+                mesh_ms=ms, card_ms=ref[1])
+
+
+def _cards_ep(shape) -> dict:
+    """(d) moe_ffn_ep over every rank at EP_ARCH's MoE widths in float32
+    (TF32 off), against moe_ffn on rank 0's card: forward and the
+    gradients of mean(y^2) + aux (each timed twice, the second kept)."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import spmd
+
+    cfg = get(EP_ARCH)
+
+    def draw():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = moe.init_moe_params(cfg, torch.float32, generator=gen,
+                                device="cuda")
+        flat = {k: v.detach() for k, v in p.state_dict().items()}
+        x = torch.randn(EP_BATCH, EP_SEQ, cfg.d_model, generator=gen,
+                        device="cuda")
+        return flat, x
+
+    def plain():
+        flat, x = draw()
+        leaves = {k: v.requires_grad_(True) for k, v in flat.items()}
+        x.requires_grad_(True)
+        for _ in range(2):
+            y, aux, ms = _grads_of(lambda: moe.moe_ffn(
+                SimpleNamespace(**leaves), x, cfg), {**leaves, "x": x})
+        out = (y.detach(), float(aux), {k: v.grad for k, v in leaves.items()}
+               | {"x": x.grad}, ms)
+        del leaves, x, y
+        _free_card()
+        return out
+
+    ref = _on_rank0(plain)
+    mesh = _mesh_of(shape)
+    flat, x = draw()
+    dp = {k: distribute_tensor(flat.pop(k), mesh, shd.placements(
+        EP_SPECS[k], mesh)).requires_grad_(True) for k in list(flat)}
+    xs = distribute_tensor(x, mesh, shd.placements(
+        ("data", None, None), mesh)).requires_grad_(True)
+    del x
+    _free_card()
+    ep_cfg = dataclasses.replace(cfg, moe_groups=1)
+    with spmd.mesh_mode():
+        for _ in range(2):
+            y, aux, ms = _grads_of(lambda: moe.moe_ffn(
+                SimpleNamespace(**dp), xs, ep_cfg, mesh=mesh),
+                {**dp, "x": xs})
+    y, aux = _whole(y), float(_whole(aux))
+    errs = {}
+    for k, t in list(dp.items()) + [("x", xs)]:
+        g = _whole(t.grad)          # every rank gathers, rank 0 compares
+        if ref is not None:
+            errs[k] = _of_max(g, ref[2][k])
+        del g
+    del dp, xs
+    _free_card()
+    if ref is None:
+        return None
+    y_err = _of_max(y, ref[0])
+    if y_err > CARDS_F32_OF_MAX or abs(aux - ref[1]) > \
+            CARDS_F32_RTOL * abs(ref[1]) or max(errs.values()) > \
+            CARDS_F32_OF_MAX:
+        raise AssertionError(f"mesh cards (d): moe_ffn_ep y {y_err:.3g}, aux "
+                             f"{aux} against {ref[1]}, gradients {errs}")
+    return dict(arch=EP_ARCH, mesh=list(shape), experts=cfg.n_experts,
+                experts_a_rank=cfg.n_experts // shape[1],
+                d_model=cfg.d_model, moe_d_ff=cfg.moe_d_ff,
+                top_k=cfg.moe_top_k, shared=cfg.n_shared_experts,
+                tokens=EP_BATCH * EP_SEQ, y_of_max=y_err,
+                aux=aux, aux_plain=ref[1], grad_of_max=max(errs.values()),
+                ep_ms=ms, plain_ms=ref[3])
+
+
+def _cards_compressed(shape, pod_shape) -> dict:
+    """(e) ``compressed_psum`` over the data axis against the exact sum,
+    then the reference's multipod loop on ``pod_shape``."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import grad_compress as gc
+
+    mesh = _mesh_of(shape)
+    group = mesh.get_group("data")
+    g = torch.from_numpy(np.random.default_rng(dist.get_rank())
+                         .standard_normal((1024, 256)).astype(np.float32)
+                         ).cuda()
+    summed, err = gc.compressed_psum(g, torch.zeros_like(g), group)
+    exact = gc.all_gather(g, group).sum(0)
+    q, s, _ = gc.ef_compress(g, torch.zeros_like(g))
+    # each rank's error against its own group's bound
+    errs = _gather_obj((
+        float((summed - exact).abs().max()),
+        float(gc.all_gather(s.reshape(1), group).sum()) / 2 * 1.0001,
+        float((err - (g - q.float() * s)).abs().max())))
+    loss = _multipod_loop(_mesh_of(pod_shape), "cuda")
+    if any(e > b or r > 1e-6 for e, b, r in errs) or \
+            not loss < MULTIPOD_LOSS:
+        raise AssertionError(f"mesh cards (e): compressed sum, its bound and "
+                             f"the residual a rank {errs}, multipod loss "
+                             f"{loss} (rule < {MULTIPOD_LOSS})")
+    return dict(mesh=list(shape), err=max(e for e, _, _ in errs),
+                of_bound=max(e / b for e, b, _ in errs),
+                pod_mesh=list(pod_shape), multipod_loss=loss)
+
+
+def _cards_pipeline(shape) -> dict:
+    """(f) ``pipeline_apply`` over the pod axis, PIPE_LAYERS / stages
+    layers a stage, against the sequential model on rank 0's card:
+    forward and the gradients of sum(out^2); ms of both."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.pipeline_parallel import (pipeline_apply,
+                                                        split_stages)
+
+    W, xs = _pipe_inputs()
+
+    def sequential():
+        Ws = W.clone().requires_grad_(True)
+
+        def run():
+            Ws.grad = None
+            seq = torch.stack([_pipe_stage(Ws, xs[i])
+                               for i in range(PIPE_MICRO)])
+            torch.sum(seq ** 2).backward()
+            return seq.detach()
+        run()
+        seq, ms = _synced_ms(run)
+        return seq, Ws.grad, ms
+
+    ref = _on_rank0(sequential)
+    mesh = _mesh_of(shape)
+    group = mesh.get_group("pod")
+    Wp = W.clone().requires_grad_(True)
+
+    def piped():
+        Wp.grad = None
+        out = pipeline_apply(_pipe_stage, split_stages(Wp, shape[0]), xs,
+                             mesh, "pod")
+        torch.sum(out ** 2).backward()
+        return out.detach()
+    piped()
+    out, ms = _synced_ms(piped)
+    grad = Wp.grad.clone()
+    dist.all_reduce(grad, group=group)     # each stage holds its slice
+    if ref is None:
+        return None
+    f_err = float((out - ref[0]).abs().max())
+    bad = (grad - ref[1]).abs() > CARDS_PIPE_GRAD_TOL * (1 + ref[1].abs())
+    g_err = float((grad - ref[1]).abs().max())
+    if f_err > CARDS_PIPE_ATOL or bool(bad.any()):
+        raise AssertionError(f"mesh cards (f): pipeline {f_err} (forward), "
+                             f"{g_err} (gradients) from the sequential model")
+    return dict(mesh=list(shape), stages=shape[0],
+                layers_a_stage=PIPE_LAYERS // shape[0], forward_err=f_err,
+                grad_err=g_err, pipeline_ms=ms, sequential_ms=ref[2])
+
+
+def _cards_elastic(save_shape, restore_shape, ckpt_dir) -> dict:
+    """(g) gemma-7b's smoke parameters saved by CheckpointManager from
+    ``save_shape`` and restored onto ``restore_shape`` over the first
+    ranks (the reference's "after losing a pod"): bit for bit, placed as
+    the smaller mesh's rules say."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    params = steps.init_train_state(get_smoke("gemma-7b"), seed=3,
+                                    device="cuda")["params"]
+    mesh_a = _mesh_of(save_shape)
+    cm = CheckpointManager(ckpt_dir)
+    cm.save(7, shd.distribute(params, shd.params_sharding(params, mesh_a)))
+    n = math.prod(restore_shape)
+    mesh_b = DeviceMesh("cuda", np.arange(n).reshape(restore_shape),
+                        mesh_dim_names=("data", "model"))
+    out = None
+    if dist.get_rank() < n:
+        sh = shd.params_sharding(params, mesh_b)
+        template = shd.distribute(params, sh)
+        got, step = cm.restore(template, shardings=sh)
+        equal = all(torch.equal(_whole(got[k]), params[k]) for k in params)
+        placed = all(got[k].placements == template[k].placements
+                     for k in params)
+        out = dict(step=step, equal=equal, placements=placed)
+    _barrier()
+    if dist.get_rank() == 0 and out != dict(step=7, equal=True,
+                                            placements=True):
+        raise AssertionError(f"mesh cards (g): restored {out}")
+    return dict(saved_on=list(save_shape), restored_on=list(restore_shape),
+                leaves=len(params), **(out or {}))
+
+
+def _cards_rank(rank, world, port, out_path, ckpt_dir):
+    """One rank of phase 20 (a spawned process, its own card, one NCCL
+    group): (a)-(g) in turn; rank 0 pickles the rows, each part's
+    seconds and every rank's ``int8_dot`` launches."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.models import attention, mla
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        shapes = _cards_meshes(world)
+        res, secs = {}, {}
+        t = time.perf_counter()
+
+        def lap(name):
+            nonlocal t
+            now = time.perf_counter()
+            secs[name] = now - t
+            t = now
+
+        with _lm_flags():
+            res["train"] = _cards_train(shapes["train"])
+            lap("a")
+            attention.BF16 = mla.BF16 = torch.float32
+            mesh = _mesh_of(shapes["smoke"])
+            res["smoke"] = {a: _cards_smoke_family(a, mesh)
+                            for a in CARDS_FAMILIES}
+            attention.BF16 = mla.BF16 = torch.bfloat16
+            lap("b")
+            res["int8"] = _cards_int8(shapes["int8"])
+            lap("c")
+            res["ep"] = _cards_ep(shapes["ep"])
+            lap("d")
+            res["compressed"] = _cards_compressed(shapes["compress"],
+                                                  shapes["pod"])
+            lap("e")
+            res["pipeline"] = _cards_pipeline(shapes["pipe"])
+            lap("f")
+            res["elastic"] = _cards_elastic(shapes["save"],
+                                            shapes["restore"], ckpt_dir)
+            lap("g")
+        res["seconds"] = secs
+        res["shapes"] = shapes
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(res, f)
+        _barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _cards_cli(n, shape, ckpt, limit_s) -> dict:
+    """(h) The trainer's CLI on the cards: ``torch.distributed.run
+    --standalone --nproc-per-node n -m repro_torch.launch.train`` with
+    CARDS_TRAIN_CLI over ``shape``, clean and with a fault at step 23
+    (``--ckpt-every 10``), both at once, their checkpoints under ``ckpt``;
+    each must exit 0 and print "loss improved", the faulted run
+    "restarts=1"."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+            *CARDS_TRAIN_CLI, "--data-axis", str(shape[0]), "--model-axis",
+            str(shape[1])]
+    runs = {"clean": base + ["--ckpt", str(ckpt / "clean")],
+            "fault": base + CARDS_CLI_FAULT + ["--ckpt", str(ckpt / "fault")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+             for k, cmd in runs.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k] = p.communicate(timeout=max(
+                1.0, limit_s - (time.perf_counter() - t0)))[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for k, p in procs.items():
+        ok = p.returncode == 0 and "loss improved" in outs[k] and (
+            k == "clean" or "restarts=1" in outs[k])
+        if not ok:
+            raise AssertionError(f"mesh cards (h) {k}: exit {p.returncode}: "
+                                 f"{outs[k][-3000:]}")
+    # every rank prints the summary: rank 0's first one
+    summary = {k: o[o.index("[train] arch="):].split(" device=")[0]
+               for k, o in outs.items()}
+    return dict(mesh=list(shape), seconds=secs, summary=summary)
+
+
+def phase_mesh_cards(report) -> dict:
+    """Phase 20: the mesh on cards, one NCCL rank a card in n spawned
+    processes (n = 4 with four cards or more, 2 with two or three): (a)
+    phase 17's cell on two meshes against one card; (b) the six
+    families' smoke steps; (c) the int8 decode at qwen3-14b's full
+    config; (d) moe_ffn_ep; (e) the compressed sum and the multipod loop;
+    (f) the pipeline; (g) the elastic restore; then (h) the trainer's
+    CLI under torch.distributed.run. Within CARDS_LIMIT_S of the ranks'
+    start, else the ranks are killed and the phase fails. With one card
+    it does not run (NCCL puts one rank on a card)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("[mesh cards] phase 20 needs two cards or more (NCCL puts one "
+            "rank on a card): not run on this host; on a host with four "
+            "cards run it alone with `python3 chip_smoke.py --phases "
+            "mesh-cards`")
+        if "int8_dot" in report:
+            report["int8_dot"]["phase20_launches"] = None
+        return dict(cards=cards, run=False)
+    n = 4 if cards >= 4 else 2
+    _free_card()
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "cards.pkl")
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_cards_rank, args=(n, _free_port(), out,
+                                      os.path.join(tmp.name, "ckpt")),
+                   nprocs=n, join=False)
+    try:
+        while not ctx.join(timeout=max(0.1, t0 + CARDS_LIMIT_S
+                                       - time.perf_counter())):
+            if time.perf_counter() - t0 > CARDS_LIMIT_S:
+                raise AssertionError(f"mesh cards: the {n} ranks took over "
+                                     f"{CARDS_LIMIT_S} s")
+        ranks_s = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            res = pickle.load(f)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        tmp.cleanup()
+    shapes = res["shapes"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        res["cli"] = _cards_cli(n, shapes["cli"], Path(ckpt),
+                                CARDS_LIMIT_S - (time.perf_counter() - t0))
+    wall = time.perf_counter() - t0
+    if wall > CARDS_LIMIT_S:
+        raise AssertionError(f"mesh cards: {wall:.1f} s, over "
+                             f"{CARDS_LIMIT_S} s")
+    card = _smi()
+    a = res["train"]
+    log(f"[mesh cards] {n} ranks on {n} cards ({card}), NCCL, torch "
+        f"{torch.__version__}; seconds {json.dumps(res['seconds'])}, the "
+        f"ranks {ranks_s:.1f} s, the CLI {res['cli']['seconds']:.1f} s, "
+        f"{wall:.1f} s in all (rule {CARDS_LIMIT_S})")
+    log(f"[mesh cards] (a) {a['arch']} {a['layers']} layers, bf16, "
+        f"{a['batch']} x {a['seq']} tokens, {a['steps']} steps: plain "
+        f"{a['plain']['ms_per_step']:.2f} ms/step "
+        f"({a['plain']['tokens_per_s']:.0f} tok/s, peak "
+        f"{a['plain']['peak_bytes'] / 2**30:.2f} GiB)")
+    for r in a["meshes"]:
+        log(f"[mesh cards] (a) mesh {r['mesh']}: {r['ms_per_step']:.2f} "
+            f"ms/step ({r['tokens_per_s']:.0f} tok/s), the first "
+            f"{CARDS_STEPS} losses within {CARDS_LOSS_RTOL} of plain "
+            f"({r['losses'][:CARDS_STEPS]}), mu "
+            f"{r['mu_of_max']:.3g} of a leaf's largest; peak per card "
+            f"{[round(b / 2**30, 2) for b in r['peak_bytes']]} GiB; profiled "
+            f"step on rank 0: wall {r['profiled_wall_ms']:.1f} ms, device "
+            f"busy {r['busy_ms']:.1f} ms, NCCL kernels {r['nccl_ms']:.1f} ms "
+            f"({r['nccl_share'] * 100:.1f} % of the step)")
+        for k in r["top_nccl"]:
+            log(f"[mesh cards] (a)   {k['ms']:9.2f} ms {k['calls']:5d} x "
+                f"{k['name']}")
+    for arch, e in res["smoke"].items():
+        log(f"[mesh cards] (b) {arch} smoke, float32, mesh {shapes['smoke']}:"
+            f" " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    c = res["int8"]
+    log(f"[mesh cards] (c) int8 decode, {c['arch']} full config "
+        f"({c['layers']} layers), mesh {c['mesh']}, batch {c['batch']}, "
+        f"{c['tokens']} tokens: softmax {c['max_softmax_diff']:.3g} from the "
+        f"bf16 cache's (rule {INT8_SOFTMAX_TOL}), logits "
+        f"{c['logits_of_max']:.3g} of their largest from one card's (rule "
+        f"{c['logits_rule']:.3g}: {CARDS_INT8_OF_MAX}, or "
+        f"{CARDS_INT8_OVER_BF16}x the bf16 cache's decode on the mesh, "
+        f"{c['bf16_logits_of_max']:.3g} from one card's); int8_dot launches "
+        f"a rank "
+        f"{c['int8_dot_launches']}; {c['mesh_ms_per_token']:.2f} ms/token on "
+        f"the mesh, {c['card_ms_per_token']:.2f} on one card (eager)")
+    d = res["ep"]
+    log(f"[mesh cards] (d) moe_ffn_ep over {d['mesh']} ({d['experts']} "
+        f"experts, {d['experts_a_rank']} a rank), float32, {d['tokens']} "
+        f"tokens: y {d['y_of_max']:.3g}, gradients {d['grad_of_max']:.3g} of "
+        f"their largest, aux {d['aux']} / {d['aux_plain']}; forward + "
+        f"backward {d['ep_ms']:.2f} ms, moe_ffn on one card "
+        f"{d['plain_ms']:.2f} ms")
+    e = res["compressed"]
+    log(f"[mesh cards] (e) compressed_psum over data ({e['mesh']}): "
+        f"{e['err']:.3g} from the exact sum, {e['of_bound']:.3g} of half a "
+        f"quantization step a rank; the "
+        f"multipod loop on {e['pod_mesh']}: loss {e['multipod_loss']:.4g} "
+        f"(rule < {MULTIPOD_LOSS})")
+    f_ = res["pipeline"]
+    log(f"[mesh cards] (f) pipeline over {f_['stages']} stages "
+        f"({f_['layers_a_stage']} of {PIPE_LAYERS} layers of width {PIPE_D} "
+        f"a stage, {PIPE_MICRO} microbatches of {PIPE_MB}): forward "
+        f"{f_['forward_err']:.3g}, gradients {f_['grad_err']:.3g} from the "
+        f"sequential model; {f_['pipeline_ms']:.2f} ms against "
+        f"{f_['sequential_ms']:.2f} ms on one card")
+    g = res["elastic"]
+    log(f"[mesh cards] (g) gemma-7b smoke saved on {g['saved_on']}, "
+        f"restored on {g['restored_on']}: {g['leaves']} leaves bit-equal, "
+        f"placed by the smaller mesh's rules")
+    h = res["cli"]
+    log(f"[mesh cards] (h) torch.distributed.run --nproc-per-node {n}, "
+        f"mesh {h['mesh']}: {json.dumps(h['summary'])}")
+    if "int8_dot" in report:
+        report["int8_dot"]["phase20_launches"] = c["int8_dot_launches"]
+    return dict(cards=cards, run=True, ranks=n, card=card,
+                torch=torch.__version__, wall_s=wall, ranks_s=ranks_s, **res)
+
+
+def _mesh_int8(mesh) -> dict:
+    """18 (g) The int8 decode on the 1x1 NCCL mesh: qwen3-14b's widths
+    cut to MESH_INT8_LAYERS layers (bf16 random weights from seed 0,
+    batch REC_BATCH, INT8_T tokens from ``init_cache``), plain and on the
+    mesh: every step's logits and the final cache bit-equal, ``int8_dot``
+    launched twice a layer and step in each run; ms/token of both."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get(CARDS_INT8_ARCH),
+                              n_layers=MESH_INT8_LAYERS, serve_quant="int8")
+    params = tf.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    flat = {k: v.detach() for k, v in params.state_dict().items()}
+    toks = _lm_prompt(cfg, REC_BATCH, INT8_T, 9, "cuda")["tokens"]
+    mesh_step = steps.make_decode_step(cfg, mesh=mesh)
+    placed = shd.distribute(flat, shd.params_sharding(flat, mesh))
+
+    def plain(cache, tok):
+        return tf.decode_step(params, cache, tok, cfg)
+
+    def on_mesh(cache, tok):
+        return mesh_step(placed, cache, tok)
+
+    runs = {}
+    for label, step in (("plain", plain), ("mesh", on_mesh)):
+        n0 = build.LAUNCHES["int8_dot"]
+        logits, ms, cache = _decode_tokens(step, tf.init_cache(
+            cfg, REC_BATCH, INT8_S_MAX, "cuda"), toks)
+        runs[label] = dict(logits=logits, ms=ms,
+                           launches=build.LAUNCHES["int8_dot"] - n0,
+                           cache=[_whole(x) for x in _lm_leaves(cache)])
+    a, b = runs["plain"], runs["mesh"]
+    want = 2 * cfg.n_layers * INT8_T
+    differ = [t for t in range(INT8_T)
+              if not bits_equal(a["logits"][t], b["logits"][t])]
+    cache_equal = all(bits_equal(x, y) for x, y in zip(a["cache"],
+                                                       b["cache"]))
+    if differ or not cache_equal or a["launches"] != want or \
+            b["launches"] != want:
+        raise AssertionError(
+            f"mesh (g): the int8 decode on the 1x1 mesh differs from the "
+            f"plain one at steps {differ} (cache equal: {cache_equal}); "
+            f"int8_dot launched {a['launches']} / {b['launches']} times, "
+            f"{want} expected")
+    row = dict(arch=CARDS_INT8_ARCH, layers=cfg.n_layers, batch=REC_BATCH,
+               tokens=INT8_T, bit_equal=True, int8_dot_launches=b["launches"],
+               plain_ms_per_token=statistics.median(a["ms"][1:]),
+               mesh_ms_per_token=statistics.median(b["ms"][1:]))
+    log(f"[mesh] (g) int8 decode of {CARDS_INT8_ARCH}'s widths at "
+        f"{cfg.n_layers} layers (bf16, batch {REC_BATCH}, {INT8_T} tokens "
+        f"from init_cache) on the 1x1 NCCL mesh: every step's logits and "
+        f"the final cache bit-equal to the plain int8 decode; int8_dot "
+        f"launched {b['launches']} times ({want} expected); ms/token plain "
+        f"{row['plain_ms_per_token']:.2f}, mesh "
+        f"{row['mesh_ms_per_token']:.2f} (DTensor's host time)")
+    del params, flat, placed, runs
+    _free_card()
+    return row
+
+
+def phase_mesh_int8() -> dict:
+    """18 (g) alone (``--phases mesh-cards``): a one-rank NCCL group of
+    its own around :func:`_mesh_int8`."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        with _lm_flags():
+            return _mesh_int8(make_host_mesh(1, 1, device="cuda"))
+    finally:
+        dist.destroy_process_group()
+
+
+PHASES = ("all", "mesh-cards")
+
+
+def _result_line() -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--phases", choices=PHASES, default="all",
+                    help="mesh-cards: the card, the build, 18 (g) and 20 "
+                    "alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
               "GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.phases == "mesh-cards":
+        t_start = time.perf_counter()
+        phase_card()
+        phase_build()
+        int8_row = phase_mesh_int8()
+        cards_row = phase_mesh_cards({})
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"mesh_int8": int8_row}))
+        print(json.dumps({"mesh_cards": cards_row}))
+        _result_line()
+        return 0
     from repro_torch.configs.torr_edge import torr_edge
     from repro_torch.data import tood_synth as ts
     from repro_torch.perf.profile_step import edge_windows
@@ -5319,16 +6401,17 @@ def main() -> int:
     served = edge_windows(world, cfg, STREAMS, WINDOWS, cfg.N_max)
     reuse = edge_windows(world, cfg, STREAMS, REUSE_WINDOWS, cfg.K)
     runs = []            # the captured runs phase_eager repeats eagerly
+    cpu_checks = []      # the CPU engines' checks, run once they have ended
     base = phase_serving(cfg, sys_, served, report, "serve", CPU_WINDOWS,
-                         runs)
+                         runs, cpu_checks)
     base_reuse = phase_serving(cfg, sys_, reuse, report,
                                f"reuse, windows cut to K={cfg.K} proposals",
-                               CPU_WINDOWS, runs)
+                               CPU_WINDOWS, runs, cpu_checks)
     mix = _path_mix(reuse, base_reuse[0])
     if mix["bypass"] <= 0 or mix["delta"] <= 0:
         raise AssertionError("reuse traffic: no bypass or no delta after "
                              "the first windows")
-    done("serving (prefix, with its two CPU references)")
+    done("serving (prefix; its two CPU references started beside it)")
 
     switch = (FUSED_SWITCH, DECIDE_NONE, 0)
     compact = (FUSED_COMPACT, DECIDE_BATCHED, None)
@@ -5370,6 +6453,9 @@ def main() -> int:
     phase_sign_project(sys_, served, report)
     rows = phase_plans(cfg, sys_, served, reuse, runs)
     done("plan ladder")
+    for check in cpu_checks:    # before the phases that time against RT-60
+        check()
+    done("the serving phase's CPU reference engines")
     phase_governed(cfg, sys_, reuse)
     done("governed (async)")
     async_rows = phase_async(cfg, sys_, (
@@ -5414,6 +6500,8 @@ def main() -> int:
         ("compact, reuse", reuse, base_reuse[2], dict(fused="compact"),
          compact_kernels)), report)
     done("stream-sharded engine")
+    cards_row = phase_mesh_cards(report)
+    done("the mesh on cards")
     phase_eager(runs)
     done("eager == captured")
     phase_plan_idle(cfg, sys_, served, rows)
@@ -5432,10 +6520,9 @@ def main() -> int:
     print(json.dumps({"lm_training": train_row}))
     print(json.dumps({"mesh": mesh_row}))
     print(json.dumps({"stream_mesh": stream_mesh_row}))
+    print(json.dumps({"mesh_cards": cards_row}))
     print(json.dumps({"kernels": list(report.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    _result_line()
     return 0
 
 

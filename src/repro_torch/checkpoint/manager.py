@@ -122,12 +122,16 @@ class CheckpointManager:
         flat = _flatten(tree)
         named = [(n, _to_host(leaf)) for n, leaf in flat]
         structure = _structure(tree)
-        if any(_is_dtensor(leaf) for _, leaf in flat):
+        meshed = [leaf for _, leaf in flat if _is_dtensor(leaf)]
+        if meshed:
             import torch.distributed as dist
 
             if dist.get_rank() == 0:
                 self._write(step, named, structure)
-            dist.barrier()
+            # under NCCL the barrier runs on this rank's own card
+            cuda = meshed[0].device_mesh.device_type == "cuda"
+            dist.barrier(device_ids=[torch.cuda.current_device()]
+                         if cuda else None)
             return self.dir / f"step_{step:08d}"
         if self.async_save:
             self.wait()

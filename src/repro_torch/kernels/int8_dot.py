@@ -16,6 +16,8 @@ and a float32 product stops being exact once a sum passes 2^24, so
   ``k < K``, the GQA values and the MLA values over the first r codes of
   each r + dr latent row (the row stride is passed, nothing is copied).
 
+Both take plain tensors: over a mesh the caller runs them on each rank's
+own rows and heads (``spmd.per_head``), and a DTensor raises ``TypeError``.
 On a CPU tensor each takes its plain version (``ref.int8_dot_rows_ref``,
 ``ref.int8_dot_cols_ref``: an int32 einsum); on a CUDA tensor it launches
 the kernel, which adds one to ``build.LAUNCHES["int8_dot"]``.
@@ -32,6 +34,10 @@ ROWS, COLS = 0, 1
 
 
 def _check(a: torch.Tensor, c: torch.Tensor, k: int) -> None:
+    if any(type(t).__name__ == "DTensor" for t in (a, c)):
+        raise TypeError(f"{NAME}: a DTensor reached the wrapper; over a mesh "
+                        "the caller passes each rank's local tensors "
+                        "(runtime/spmd.py::per_head)")
     if a.dtype != torch.int8 or c.dtype != torch.int8:
         raise TypeError(f"{NAME}: operands must be int8")
     if a.dim() != 4 or c.dim() != 4 or c.shape[0] != a.shape[0] or \

@@ -61,7 +61,9 @@ def parse_args(argv=None):
 
 
 def _mesh(data: int, model: int, device: torch.device):
-    """A (data, model) mesh over the ranks the launcher started."""
+    """A (data, model) mesh over the ranks the launcher started. On the
+    card each rank takes its card (``LOCAL_RANK``) before it starts its
+    NCCL group, so no communicator, and no barrier, binds to cuda:0."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -70,10 +72,16 @@ def _mesh(data: int, model: int, device: torch.device):
                 f"--data-axis {data} --model-axis {model}: start one process "
                 f"a rank (torchrun --nproc-per-node {data * model}), which "
                 "sets RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT")
+        kw = {}
+        if device.type == "cuda":
+            card = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", os.environ["RANK"])))
+            torch.cuda.set_device(card)
+            kw["device_id"] = card
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
-            init_method="env://")
-    if device.type == "cuda":
+            init_method="env://", **kw)
+    elif device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
                                                  dist.get_rank())))
     return make_host_mesh(data, model, device=device.type)

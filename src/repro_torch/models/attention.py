@@ -116,19 +116,20 @@ def _causal_chunks(qg, k, v, cfg: ModelConfig) -> torch.Tensor:
     with its own rows and heads (``spmd.per_head``): the KV heads sharded
     with their query groups, or a single KV head shared by query heads
     sharded within the group."""
-    return _merged(_on_heads(_causal_core, qg, k, v, cfg), cfg)
+    return _merged(_on_heads(_causal_core, qg, (k, v), cfg), cfg)
 
 
-def _on_heads(core, qg, k, v, cfg: ModelConfig, *whole):
-    """``core(qg, k, v, *whole, cfg)`` through ``spmd.per_head``: grouped
-    queries [B,(S,)Hkv,G,dh] against k/v [B,S,Hkv,dh], split by their KV
-    heads, or with a single KV head by the query heads of its group (k
-    and v then whole); ``whole`` (a mask) is every head's."""
+def _on_heads(core, qg, kv, cfg: ModelConfig, *whole):
+    """``core(qg, *kv, *whole, cfg)`` through ``spmd.per_head``: grouped
+    queries [B,(S,)Hkv,G,dh] against ``kv``, tensors [B,S,Hkv,...] (k and
+    v, or an int8 cache's codes and scales), split by their KV heads, or
+    with a single KV head by the query heads of its group (``kv`` then
+    whole); ``whole`` (a mask) is every head's."""
     h = qg.ndim - 3
     if cfg.n_kv_heads == 1:
-        heads = ((qg, h + 1), (k, None), (v, None))
+        heads = ((qg, h + 1),) + tuple((t, None) for t in kv)
     else:
-        heads = ((qg, h), (k, 2), (v, 2))
+        heads = ((qg, h),) + tuple((t, 2) for t in kv)
     return per_head(lambda *a: core(*a, cfg), *heads, *whole)
 
 
@@ -225,26 +226,36 @@ def attn_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
         if cfg.sliding_window is not None:
             keep &= kpos > pos - cfg.sliding_window
     if quant:
+        # the rows are written into the caller's cache tensors (over a
+        # mesh each rank's own shard, ``spmd``'s index_copy_), then read
+        # on each rank's own rows and heads
         for name, t in zip(("kq", "ks", "vq", "vs"),
                            (*_quant_rows(k_new), *_quant_rows(v_new))):
             cache[name].index_copy_(1, index, t)
-        qq, qs = _quant_rows(qg)                      # [B,Hkv,G,dh],[B,Hkv,G]
-        s_i32 = int8_dot.rows(qq, cache["kq"])
-        s = (s_i32.float() * qs[..., None]
-             * cache["ks"].transpose(1, 2)[:, :, None, :]) \
-            * cfg.head_dim ** -0.5
-        s = softcap(s, cfg.attn_logit_softcap)
-        s = torch.where(keep[None, None, None, :], s, NEG_INF)
-        pr = _softmax(s) * cache["vs"].transpose(1, 2)[:, :, None, :]
-        pq, ps = _quant_rows(pr)                      # [B,Hkv,G,S]
-        o_i32 = int8_dot.cols(pq, cache["vq"])
-        o = (o_i32.float() * ps[..., None]).to(x.dtype)
+        o = _on_heads(_int8_decode_core, qg, tuple(
+            cache[n] for n in ("kq", "ks", "vq", "vs")), cfg, keep)
+        o = o.to(x.dtype)
     else:
         k_cache, v_cache = cache
         k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
         v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
-        o = _on_heads(_decode_core, qg, k_cache, v_cache, cfg, keep)
+        o = _on_heads(_decode_core, qg, (k_cache, v_cache), cfg, keep)
     return _merged(o[:, None], cfg) @ p.wo, cache
+
+
+def _int8_decode_core(qg, kq, ks, vq, vs, keep, cfg: ModelConfig):
+    """One query token against the int8 cache, on whole (local) tensors:
+    qg [B,Hkv,G,dh] quantized per row, the scores and values contracted
+    on the codes (``int8_dot``) with kq/vq [B,S,Hkv,dh], the scales ks/vs
+    [B,S,Hkv] folded in after each product; float32 [B,Hkv,G,dh]."""
+    qq, qs = _quant_rows(qg)                          # [B,Hkv,G,dh],[B,Hkv,G]
+    s = (int8_dot.rows(qq, kq).float() * qs[..., None]
+         * ks.transpose(1, 2)[:, :, None, :]) * cfg.head_dim ** -0.5
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    pr = _softmax(s) * vs.transpose(1, 2)[:, :, None, :]
+    pq, ps = _quant_rows(pr)                          # [B,Hkv,G,S]
+    return int8_dot.cols(pq, vq).float() * ps[..., None]
 
 
 def _decode_core(qg, k, v, keep, cfg: ModelConfig, cap=True):
@@ -279,7 +290,7 @@ def cross_attn(p: Params, x: torch.Tensor, vis: torch.Tensor,
     B, S, _ = x.shape
     vis = _vision_in(rmsnorm(vis, p.kv_norm, cfg.rmsnorm_eps), p)
     q, k, v = _qkv(p, x, cfg, kv_src=vis)
-    o = _on_heads(_cross_core, _grouped(q, cfg), k, v, cfg)
+    o = _on_heads(_cross_core, _grouped(q, cfg), (k, v), cfg)
     return _merged(o, cfg) @ p.wo
 
 
@@ -312,5 +323,5 @@ def cross_attn_decode(p: Params, x: torch.Tensor, kv: tuple,
         q = rmsnorm(q, p.q_norm, cfg.rmsnorm_eps)
     o = _on_heads(lambda qg, k, v, cfg: _decode_core(qg, k, v, None, cfg,
                                                     cap=False),
-                  _grouped(q, cfg)[:, 0], k, v, cfg)
+                  _grouped(q, cfg)[:, 0], (k, v), cfg)
     return _merged(o[:, None], cfg) @ p.wo

@@ -154,6 +154,33 @@ def _int8_dot(a_f: torch.Tensor, c_q: torch.Tensor, k: int | None = None):
     return out[:, 0], a_s
 
 
+def _int8_decode_core(q_full, c_q, c_s, keep, scale, r):
+    """The absorbed query [B,H,r+dr] against the int8 latent cache (codes
+    c_q [B,S,r+dr], scales c_s [B,S]) on whole (local) tensors: the
+    attention over the latents, float32 [B,H,r]."""
+    s_i32, q_s = _int8_dot(q_full, c_q)
+    s = (s_i32.float() * q_s[..., None] * c_s[:, None, :]) * scale
+    s = torch.where(keep[None, None, :], s, NEG_INF)
+    pr = _softmax(s)                                       # f32 [B,H,S]
+    pr_scaled = pr * c_s[:, None, :]                       # fold cache scales
+    o_i32, p_s = _int8_dot(pr_scaled, c_q, r)
+    return o_i32.float() * p_s[..., None]
+
+
+def _decode_core(q_lat, q_rope, c, keep, scale, r):
+    """The absorbed query (q_lat [B,H,r], q_rope [B,H,dr]) against the
+    latent cache c [B,S,r+dr] on whole (local) tensors: the attention over
+    the latents [B,H,r]."""
+    c_all, k_rope_all = c[..., :r], c[..., r:]
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.to(BF16),
+                      c_all.to(BF16)).float()
+         + torch.einsum("bhd,bsd->bhs", q_rope.to(BF16),
+                        k_rope_all.to(BF16)).float()) * scale
+    s = torch.where(keep[None, None, :], s, NEG_INF)
+    pr = _softmax(s).to(c_all.dtype)
+    return torch.einsum("bhs,bsr->bhr", pr, c_all)    # attend over latents
+
+
 def mla_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
                cfg: ModelConfig):
     """Absorbed one-token decode against the latent cache [B, S_max, r+dr]
@@ -176,30 +203,23 @@ def mla_decode(p: Params, x: torch.Tensor, cache, pos: torch.Tensor,
     scale = (dn + dr) ** -0.5
     keep = torch.arange(S_max, device=x.device) <= pos
 
+    # the new row is written into the caller's cache (over a mesh each
+    # rank's own shard, ``spmd``'s index_copy_); then each rank attends
+    # with its own rows and query heads over the whole latent cache (it
+    # has no head axis)
     if quant:
         eq, es = _quant_rows(new_entry)                    # [B,1,*], [B,1]
         cache["q"].index_copy_(1, slot, eq)
         cache["s"].index_copy_(1, slot, es)
         q_full = torch.cat([q_lat, q_rope[:, 0]], dim=-1)  # [B,H,r+dr]
-        s_i32, q_s = _int8_dot(q_full, cache["q"])
-        s = (s_i32.float() * q_s[..., None]
-             * cache["s"][:, None, :]) * scale
-        s = torch.where(keep[None, None, :], s, NEG_INF)
-        pr = _softmax(s)                                   # f32 [B,H,S]
-        pr_scaled = pr * cache["s"][:, None, :]            # fold cache scales
-        o_i32, p_s = _int8_dot(pr_scaled, cache["q"], r)
-        o_lat = o_i32.float() * p_s[..., None]
+        o_lat = per_head(lambda q, c, cs, k: _int8_decode_core(
+            q, c, cs, k, scale, r), (q_full, 1), (cache["q"], None),
+            (cache["s"], None), keep)
     else:
         cache.index_copy_(1, slot, new_entry.to(cache.dtype))
-        c_all = cache[..., :r]
-        k_rope_all = cache[..., r:]
-        s = (torch.einsum("bhr,bsr->bhs", q_lat.to(BF16),
-                          c_all.to(BF16)).float()
-             + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(BF16),
-                            k_rope_all.to(BF16)).float()) * scale
-        s = torch.where(keep[None, None, :], s, NEG_INF)
-        pr = _softmax(s).to(c_all.dtype)
-        o_lat = torch.einsum("bhs,bsr->bhr", pr, c_all)   # attend over latents
+        o_lat = per_head(lambda ql, qr, c, k: _decode_core(
+            ql, qr, c, k, scale, r), (q_lat, 1), (q_rope[:, 0], 1),
+            (cache, None), keep)
 
     wv_b = p.wv_b.reshape(r, H, dv)
     o = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), wv_b)  # absorb W_UV

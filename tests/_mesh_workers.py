@@ -127,19 +127,71 @@ def _serve_pair(cfg, params, prompt, mesh):
 
 def _int8_pair(cfg, params, prompt, mesh):
     """One ``serve_quant="int8"`` decode step from a zero int8 cache
-    (the reference's int8 dicts), plain and on the mesh."""
+    (the reference's int8 dicts), plain and on the mesh; and the types of
+    the operands of every ``int8_dot.rows`` / ``cols`` call the mesh step
+    made (``"int8 operands"``)."""
+    from repro_torch.kernels import int8_dot
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import steps
 
     cfg = dataclasses.replace(cfg, serve_quant="int8")
     B, S = prompt["tokens"].shape[:2]
-    out = {}
+    out = {"int8 operands": []}
+    wrappers = int8_dot.rows, int8_dot.cols
+
+    def recorded(fn):
+        def call(a, c, *rest):
+            out["int8 operands"].append((type(a).__name__,
+                                         type(c).__name__))
+            return fn(a, c, *rest)
+        return call
+
     for label, m in (("plain", None), ("mesh", mesh)):
         cache = tf.init_cache(cfg, B, S + 8, device="cpu")
-        cache, logits = steps.make_decode_step(cfg, mesh=m)(
-            params, cache, prompt["tokens"][:, -1])
+        if m is not None:
+            int8_dot.rows, int8_dot.cols = map(recorded, wrappers)
+        try:
+            cache, logits = steps.make_decode_step(cfg, mesh=m)(
+                params, cache, prompt["tokens"][:, -1])
+        finally:
+            int8_dot.rows, int8_dot.cols = wrappers
         out[f"int8 decode_{label}"] = (_np(logits), _tree_np(cache))
     return out
+
+
+def _dtensor_refused(mesh) -> str:
+    """What ``int8_dot.rows`` raises when handed DTensors (a TypeError's
+    message), or "" if it does not."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.kernels import int8_dot
+    from repro_torch.runtime import sharding as shd
+
+    a = torch.ones((4, 2, 1, 8), dtype=torch.int8)
+    c = torch.ones((4, 3, 2, 8), dtype=torch.int8)
+    spec = shd.placements(("data", None, None, None), mesh)
+    try:
+        int8_dot.rows(distribute_tensor(a, mesh, spec),
+                      distribute_tensor(c, mesh, spec))
+    except TypeError as e:
+        return str(e)
+    return ""
+
+
+def _multipod() -> float:
+    """The reference's multipod loop on a (2, 2, 2) ("pod", "data",
+    "model") mesh of the 8 ranks: ``chip_smoke.py`` phase 20 (e)'s own
+    loop, on the CPU."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return chip_smoke._multipod_loop(make_host_mesh(2, 2, pod=2,
+                                                    device="cpu"), "cpu")
 
 
 def _ep(mesh, inputs) -> dict:
@@ -306,8 +358,10 @@ def mesh_run_worker(rank, world, port, inputs, out_path):
         if cfg.family in ("dense", "moe"):
             res[arch].update(_int8_pair(cfg, params, prompt, mesh))
         lap(f"{arch} serve")
+    res["int8_refused"] = _dtensor_refused(mesh)
     res["ep"] = _ep(mesh, inputs)
     res["compressed"] = _compressed(rank, mesh)
+    res["multipod"] = _multipod()
     res["elastic"] = _elastic(rank, inputs)
     lap("ep, compressed, elastic")
     attention.BF16 = mla.BF16 = torch.bfloat16

@@ -37,8 +37,16 @@ Rules (readings of the last run on this CPU, torch 2.13, in brackets):
   1e-4 of the reference's ``moe_ffn`` (that test's rule), its load-balance
   term rtol 1e-5, its gradients within 1e-4 of each leaf's largest of the
   plain ``moe_ffn``'s;
+- the int8 decode's cores run on each rank's local tensors: every
+  operand the mesh step hands ``int8_dot.rows`` / ``cols`` (qwen3-14b's
+  and deepseek-v2-236b's) is a plain tensor, and a DTensor handed to
+  ``int8_dot.rows`` raises ``TypeError``;
 - the int8 compressed all-gather-sum over the data axis within half a
-  quantization step per rank of the exact sum;
+  quantization step per rank of the exact sum; the reference's multipod
+  loop (``tests/test_distributed.py:79-113``: least squares, the
+  compressed sum over 'pod', AdamW at lr 5e-2, 60 steps) on a (2, 2, 2)
+  ("pod", "data", "model") mesh of the same 8 ranks ends below the
+  reference's loss of 0.5;
 - parameters saved on a 4x2 mesh and restored onto a 2x2 mesh equal the
   saved ones bit for bit, placed as the 2x2 mesh's rules say;
 - on a 1x1 mesh xlstm-1.3b's train step, prefill and decode equal the
@@ -210,6 +218,22 @@ def test_family_serving_step_on_2x4(run, arch, step):
     got = dict(_leaves(c1))
     for k, want in _leaves(c0):
         _close_of_max(got[k], want, 1e-4, k)
+
+
+@pytest.mark.parametrize("arch", ("qwen3-14b", "deepseek-v2-236b"))
+def test_int8_cores_take_local_tensors_on_2x4(run, arch):
+    seen = run[arch]["int8 operands"]
+    # two contractions a layer, on every rank's own rows and heads
+    assert len(seen) >= 2, seen
+    assert set(seen) == {("Tensor", "Tensor")}, set(seen)
+
+
+def test_a_dtensor_reaching_int8_dot_raises(run):
+    assert "DTensor" in run["int8_refused"], run["int8_refused"]
+
+
+def test_multipod_compressed_loop_on_2x2x2(run):
+    assert run["multipod"] < 0.5, run["multipod"]
 
 
 def test_moe_ffn_ep_matches_reference(run):

@@ -79,3 +79,27 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
                            TokenStream(cfg, 2, 16).batch_at(0))
     assert opt["step"].device.type == "cpu" and int(opt["step"]) == 1
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_a_rank_takes_its_card_before_its_nccl_group(monkeypatch):
+    """Under NCCL a rank binds its communicators (and a barrier) to its
+    current card, so ``_mesh`` sets the card of ``LOCAL_RANK`` first and
+    names it to ``init_process_group``."""
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", str(d))))
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw: (
+        calls.append(("init_process_group", backend,
+                      str(kw.get("device_id"))))))
+    monkeypatch.setattr(train, "make_host_mesh",
+                        lambda data, model, device: (data, model, device))
+    mesh = train._mesh(2, 2, torch.device("cuda"))
+    assert mesh == (2, 2, "cuda")
+    assert calls == [("set_device", "cuda:1"),
+                     ("init_process_group", "nccl", "cuda:1")], calls
